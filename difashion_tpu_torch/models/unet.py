@@ -1,0 +1,146 @@
+"""SD UNet2DCondition, NCHW, diffusers key layout, with DiFashion's 8-channel
+conv_in. Counterpart of `difashion_tpu/models/unet.py`.
+
+conv_in -> time MLP -> 3 cross-attention down blocks + 1 plain down block ->
+mid (resnet, transformer, resnet) -> 1 plain up block + 3 cross-attention up
+blocks -> GN/SiLU/conv_out. Skips are pushed after every down resnet and
+downsample and popped in reverse by the up resnets, each of which runs on
+torch.cat([h, skip], 1).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from difashion_tpu_torch.config import UNetConfig
+from difashion_tpu_torch.nn.attention import Transformer2D
+from difashion_tpu_torch.nn.layers import (
+    Downsample2D,
+    GroupNorm,
+    ResnetBlock2D,
+    TimestepEmbedding,
+    Upsample2D,
+    conv2d,
+    get_timestep_embedding,
+)
+
+
+class _Block(nn.Module):
+    """One UNet level: `resnets.i`, `attentions.i` (maybe none) and
+    `downsamplers.0` / `upsamplers.0` (maybe none)."""
+
+    def __init__(self, resnets: List[nn.Module], attentions: List[nn.Module],
+                 downsample: Optional[nn.Module] = None,
+                 upsample: Optional[nn.Module] = None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        self.attentions = nn.ModuleList(attentions)
+        if downsample is not None:
+            self.downsamplers = nn.ModuleList([downsample])
+        if upsample is not None:
+            self.upsamplers = nn.ModuleList([upsample])
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        self.config = cfg = config
+        boc, g = cfg.block_out_channels, cfg.norm_num_groups
+        temb_ch = boc[0] * 4
+
+        def spatial(ch: int) -> Transformer2D:
+            heads = cfg.fixed_num_heads or ch // cfg.attention_head_dim
+            return Transformer2D(heads, ch // heads, ch, 1, cfg.cross_attention_dim,
+                                 cfg.use_linear_projection, g)
+
+        self.conv_in = conv2d(cfg.in_channels, boc[0])
+        self.time_embedding = TimestepEmbedding(boc[0], temb_ch)
+
+        # the skip channels, pushed as the forward pass pushes the skips
+        ch, skips = boc[0], [boc[0]]
+        down = []
+        for bi, block_type in enumerate(cfg.down_block_types):
+            out_ch = boc[bi]
+            last = bi == len(cfg.down_block_types) - 1
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(ResnetBlock2D(ch, out_ch, temb_ch, g))
+                ch = out_ch
+                if block_type == "CrossAttnDownBlock2D":
+                    attns.append(spatial(ch))
+                skips.append(ch)
+            down.append(_Block(resnets, attns,
+                               downsample=None if last else Downsample2D(ch)))
+            if not last:
+                skips.append(ch)
+        self.down_blocks = nn.ModuleList(down)
+
+        self.mid_block = _Block(
+            [ResnetBlock2D(ch, ch, temb_ch, g), ResnetBlock2D(ch, ch, temb_ch, g)],
+            [spatial(ch)])
+
+        up = []
+        for bi, block_type in enumerate(cfg.up_block_types):
+            out_ch = list(reversed(boc))[bi]
+            last = bi == len(cfg.up_block_types) - 1
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block + 1):
+                resnets.append(ResnetBlock2D(ch + skips.pop(), out_ch, temb_ch, g))
+                ch = out_ch
+                if block_type == "CrossAttnUpBlock2D":
+                    attns.append(spatial(ch))
+            up.append(_Block(resnets, attns,
+                             upsample=None if last else Upsample2D(ch)))
+        self.up_blocks = nn.ModuleList(up)
+
+        self.conv_norm_out = GroupNorm(g, ch, act="silu")
+        self.conv_out = conv2d(ch, cfg.out_channels)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                plain_attention: bool = False) -> torch.Tensor:
+        """sample [B, C_in, H, W]; timesteps [B] (or a scalar); context
+        [B, S, context_dim]. Returns [B, C_out, H, W] in the compute dtype.
+        `plain_attention` sends every attention through the kernel's plain
+        version (to hold the kernel path against it)."""
+        cfg, dtype = self.config, self.dtype
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                       cfg.flip_sin_to_cos, cfg.freq_shift)
+        temb = self.time_embedding(t_emb.to(dtype))
+        ctx = encoder_hidden_states.to(dtype)
+        kw = dict(plain=plain_attention)
+
+        h = self.conv_in(sample.to(dtype))
+        skips = [h]
+        for block in self.down_blocks:
+            for i, resnet in enumerate(block.resnets):
+                h = resnet(h, temb)
+                if len(block.attentions):
+                    h = block.attentions[i](h, ctx, **kw)
+                skips.append(h)
+            for down in getattr(block, "downsamplers", ()):
+                h = down(h)
+                skips.append(h)
+
+        mid = self.mid_block
+        h = mid.resnets[0](h, temb)
+        h = mid.attentions[0](h, ctx, **kw)
+        h = mid.resnets[1](h, temb)
+
+        for block in self.up_blocks:
+            for i, resnet in enumerate(block.resnets):
+                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                if len(block.attentions):
+                    h = block.attentions[i](h, ctx, **kw)
+            for upsample in getattr(block, "upsamplers", ()):
+                h = upsample(h)
+
+        return self.conv_out(self.conv_norm_out(h))
