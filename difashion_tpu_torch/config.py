@@ -1,8 +1,10 @@
-"""Model configuration: the architecture dataclasses and their presets.
+"""Configuration: the architecture dataclasses and their presets, and the
+training recipe.
 
-A copy of the model half of `difashion_tpu/core/config.py` (same fields, same
-defaults, same presets), kept here so the port imports nothing of the JAX
-package. The training, generation and data configs come with their slices.
+Copies of `difashion_tpu/core/config.py`'s model configs and `TrainConfig`
+(same fields, same defaults, same presets), kept here so the port imports
+nothing of the JAX package. The generation and data configs come with their
+slices.
 """
 from __future__ import annotations
 
@@ -177,3 +179,47 @@ class ModelConfig:
             latent_channels=4, latent_size=unet.sample_size, hid_dim=32
         )
         return ModelConfig(unet=unet, vae=vae, text=text, mutual=mutual)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The reference's `run_eta0.1.sh` recipe (its `train.py` defaults), as
+    the JAX package's `TrainConfig` encodes it."""
+
+    learning_rate: float = 1e-5
+    scale_lr: bool = False                # lr *= accumulation * batch * world size
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    use_8bit_adam: bool = False           # block-wise int8 AdamW moments
+    max_grad_norm: float = 1.0
+    train_batch_size: int = 2             # outfits per device batch
+    gradient_accumulation_steps: int = 1
+    max_train_steps: int = 20000
+    lr_scheduler: str = "constant"
+    lr_warmup_steps: int = 0
+    checkpointing_steps: int = 1000
+    checkpoints_total_limit: Optional[int] = None
+    seed: int = 123
+    use_ema: bool = True
+    use_ema_fashion: bool = True
+    ema_decay: float = 0.9999
+    snr_gamma: Optional[float] = 5.0
+    noise_offset: float = 0.0
+    prediction_type: Optional[str] = None  # None -> the scheduler's
+    # condition-dropout windows (the reference's 0.2, 0.3, 0.2)
+    mask_ratio: float = 0.2                # history window start
+    coupling_mask_ratio: float = 0.3
+    cate_mask_ratio: float = 0.2
+    eta: float = 0.1                       # mutual-condition blend weight
+    use_history: bool = True
+    use_mutual_guidance: bool = True
+    mixed_precision: str = "bf16"          # "bf16": torch.autocast over fp32 weights
+    gradient_checkpointing: bool = False
+    # what a checkpointed block saves when gradient_checkpointing is on
+    remat_policy: Optional[str] = "dots_no_batch"   # None | "dots" | "dots_no_batch"
+    skip_nonfinite_updates: bool = True    # NaN/Inf gradient guard: hold params, count skips
+    dp_size: int = -1                      # -1 => all available devices
+    output_dir: str = "ckpt"
+    resume_from_checkpoint: Optional[str] = None  # "latest" or an explicit path

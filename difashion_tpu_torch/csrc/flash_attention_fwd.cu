@@ -32,91 +32,14 @@
 // strides for batch, head and sequence (the last dim is contiguous), so the
 // [B, S, H, D] view of a projection output is read in place.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;     // query rows per block (16 per warp)
-constexpr int kBlockKV = 64;    // KV rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;         // row padding in elements (16 bytes)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-template <typename T> struct MmaOp;
-
-template <> struct MmaOp<__nv_bfloat16> {
-  __device__ __forceinline__ static void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <> struct MmaOp<__half> {
-  __device__ __forceinline__ static void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-// Copy `rows` rows of D elements (row r at src + r*stride) into a padded shared
-// tile of kBlockQ/kBlockKV rows; rows >= valid are zero-filled.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride, int valid) {
-  constexpr int kVecPerRow = D / 8;  // 16-byte vectors of 8 elements
-  constexpr int kVecs = ROWS * kVecPerRow;
-  for (int i = threadIdx.x; i < kVecs; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    const bool ok = r < valid;
-    const T* g = src + (ok ? static_cast<int64_t>(r) * stride : 0) + c;
-    cp_async16(dst + r * (D + kPad) + c, g, ok ? 16 : 0);
-  }
-}
+constexpr int kBlockQ = kTile;   // query rows per block (16 per warp)
+constexpr int kBlockKV = kTile;  // KV rows per tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -183,35 +106,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    if (j == 0) {
-      const T* qw = sQ + warp * 16 * LD;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const int c = ks * 16 + 2 * t;
-        qa[ks][0] = *reinterpret_cast<const uint32_t*>(qw + g * LD + c);
-        qa[ks][1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LD + c);
-        qa[ks][2] = *reinterpret_cast<const uint32_t*>(qw + g * LD + c + 8);
-        qa[ks][3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LD + c + 8);
-      }
-    }
+    if (j == 0) load_a_frags<T, D>(qa, sQ + warp * 16 * LD, g, t);
 
     const T* kt = sK + buf * kBlockKV * LD;
     const T* vt = sV + buf * kBlockKV * LD;
 
     // S = Q K^T for this warp's 16 rows x 64 KV columns.
-    float s[NT_KV][4];
-#pragma unroll
-    for (int n = 0; n < NT_KV; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-      const T* kr = kt + (n * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
-        MmaOp<T>::run(s[n], qa[ks], b0, b1);
-      }
-    }
+    float s[NT_KV][4] = {};
+    mma_rows_t<T, D>(s, qa, kt, g, t);
 
     // Scale into the base-2 domain and mask the ragged KV edge.
     const int kv0 = j * kBlockKV;
@@ -258,23 +160,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kBlockKV / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = MmaOp<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = MmaOp<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = MmaOp<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = MmaOp<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int mi = lane / 8;
-      const int row = kk * 16 + (mi & 1) * 8 + (lane % 8);
-#pragma unroll
-      for (int nd = 0; nd < NT_D / 2; ++nd) {
-        const int col = nd * 16 + (mi >> 1) * 8;
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(smem_addr(vt + row * LD + col)));
-        MmaOp<T>::run(acc[2 * nd], pa, b0, b1);
-        MmaOp<T>::run(acc[2 * nd + 1], pa, b2, b3);
-      }
+      pack_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
+      mma_a_tile<T, D>(acc, pa, vt, kk, lane);
     }
     __syncthreads();  // the buffer is refilled at iteration j + 1
   }

@@ -9,7 +9,7 @@ the bundle.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -25,6 +25,9 @@ from difashion_tpu_torch.nn.layers import FeedForward, ResnetBlock2D
 
 Device = Union[str, torch.device]
 
+TRAINABLE = ("unet", "fashion_encoder")
+FROZEN = ("vae", "text_encoder")
+
 
 class DiFashion(nn.Module):
     def __init__(self, config: ModelConfig):
@@ -35,6 +38,23 @@ class DiFashion(nn.Module):
         self.text_encoder = CLIPTextEncoder(config.text)
         self.fashion_encoder = MutualEncoder(config.mutual)
         self.schedule = DiffusionSchedule.create(config.scheduler)
+
+    def prepare_for_training(self) -> "DiFashion":
+        """The trainable/frozen split of the JAX package's
+        `engine/train.py::split_params`: {unet, fashion_encoder} require grad
+        and are in training mode (the MutualEncoder's dropout acts);
+        {vae, text_encoder} are frozen and stay in eval mode."""
+        for name in TRAINABLE:
+            getattr(self, name).train().requires_grad_(True)
+        for name in FROZEN:
+            getattr(self, name).eval().requires_grad_(False)
+        return self
+
+    def trainable_parameters(self) -> List[Tuple[str, nn.Parameter]]:
+        """(name, parameter) of the trainable towers, names prefixed with the
+        tower ("unet.conv_in.weight", "fashion_encoder.mlp.0.weight")."""
+        return [(f"{tower}.{name}", p) for tower in TRAINABLE
+                for name, p in getattr(self, tower).named_parameters()]
 
     def apply_unet(self, sample: torch.Tensor, timesteps: torch.Tensor,
                    encoder_hidden_states: torch.Tensor,
@@ -58,8 +78,12 @@ class DiFashion(nn.Module):
     def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.text_encoder(input_ids)
 
-    def apply_mutual(self, mutual_emb: torch.Tensor) -> torch.Tensor:
-        return self.fashion_encoder(mutual_emb)
+    def apply_mutual(self, mutual_emb: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     deterministic: Optional[bool] = None) -> torch.Tensor:
+        """The MutualEncoder; its dropout acts in training mode unless
+        `deterministic`, with its mask drawn from `generator`."""
+        return self.fashion_encoder(mutual_emb, generator, deterministic)
 
 
 def _residual_branch_outputs(tower: nn.Module):

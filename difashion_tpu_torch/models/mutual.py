@@ -8,6 +8,8 @@ touched in compute.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -30,9 +32,19 @@ class MutualEncoder(nn.Module):
             nn.Tanh(),
         )
 
-    def forward(self, mutual_emb: torch.Tensor) -> torch.Tensor:
-        """mutual_emb [B, C, h, w] -> [B, C, h, w] in [-1, 1]. Dropout acts in
-        training mode only."""
+    def forward(self, mutual_emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None) -> torch.Tensor:
+        """mutual_emb [B, C, h, w] -> [B, C, h, w] in [-1, 1]. Dropout acts
+        unless `deterministic` (default: not in training mode); its keep mask
+        is drawn from `generator` (torch's default generator when None)."""
+        if deterministic is None:
+            deterministic = not self.training
+        lin0, act, drop, lin1, tanh = self.mlp
         b = mutual_emb.shape[0]
-        x = mutual_emb.to(self.mlp[0].weight.dtype).reshape(b, -1)
-        return self.mlp(x).reshape(mutual_emb.shape)
+        x = act(lin0(mutual_emb.to(lin0.weight.dtype).reshape(b, -1)))
+        if not deterministic and drop.p > 0:
+            # flax's Dropout: keep with probability 1 - p, scale kept values by 1/(1-p)
+            keep = torch.rand(x.shape, generator=generator, device=x.device) >= drop.p
+            x = torch.where(keep, x / (1.0 - drop.p), torch.zeros_like(x))
+        return tanh(lin1(x)).reshape(mutual_emb.shape)

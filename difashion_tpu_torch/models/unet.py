@@ -6,13 +6,27 @@ mid (resnet, transformer, resnet) -> 1 plain up block + 3 cross-attention up
 blocks -> GN/SiLU/conv_out. Skips are pushed after every down resnet and
 downsample and popped in reverse by the up resnets, each of which runs on
 torch.cat([h, skip], 1).
+
+Gradient checkpointing (the JAX package's `remat`) wraps every ResnetBlock2D
+and Transformer2D call in `torch.utils.checkpoint` (non-reentrant) while
+autograd records. `remat_policy` picks what a checkpointed block keeps, as
+close to JAX's policies as torch's selective checkpointing allows: None saves
+nothing (everything is recomputed); "dots" saves the outputs of matrix
+products and convolutions (`jax.checkpoint_policies.checkpoint_dots`);
+"dots_no_batch" saves the outputs of matrix products without batch dims, that
+is of the linear layers, and no convolutions
+(`dots_with_no_batch_dims_saveable`). The attention kernels are recomputed
+under every policy, as the Pallas calls are in JAX. The gradients are the same
+under every policy.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from difashion_tpu_torch.config import UNetConfig
 from difashion_tpu_torch.nn.attention import Transformer2D
@@ -25,6 +39,15 @@ from difashion_tpu_torch.nn.layers import (
     conv2d,
     get_timestep_embedding,
 )
+
+
+_aten = torch.ops.aten
+REMAT_POLICIES = {
+    None: None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default, _aten.convolution.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 class _Block(nn.Module):
@@ -97,6 +120,26 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = GroupNorm(g, ch, act="silu")
         self.conv_out = conv2d(ch, cfg.out_channels)
+        self.gradient_checkpointing = False
+        self.remat_policy: Optional[str] = None
+
+    def set_gradient_checkpointing(self, enabled: bool,
+                                   policy: Optional[str] = None) -> None:
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {policy!r}, expected one of "
+                             f"{list(REMAT_POLICIES)}")
+        self.gradient_checkpointing, self.remat_policy = enabled, policy
+
+    def _call(self, block: nn.Module, *args, **kwargs):
+        """block(*args), checkpointed when gradient checkpointing is on and
+        autograd records."""
+        if not (self.gradient_checkpointing and torch.is_grad_enabled()):
+            return block(*args, **kwargs)
+        saved = REMAT_POLICIES[self.remat_policy]
+        if saved is not None:
+            kwargs["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, list(saved))
+        return checkpoint(block, *args, use_reentrant=False, **kwargs)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -122,24 +165,24 @@ class UNet2DCondition(nn.Module):
         skips = [h]
         for block in self.down_blocks:
             for i, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = self._call(resnet, h, temb)
                 if len(block.attentions):
-                    h = block.attentions[i](h, ctx, **kw)
+                    h = self._call(block.attentions[i], h, ctx, **kw)
                 skips.append(h)
             for down in getattr(block, "downsamplers", ()):
                 h = down(h)
                 skips.append(h)
 
         mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h = mid.attentions[0](h, ctx, **kw)
-        h = mid.resnets[1](h, temb)
+        h = self._call(mid.resnets[0], h, temb)
+        h = self._call(mid.attentions[0], h, ctx, **kw)
+        h = self._call(mid.resnets[1], h, temb)
 
         for block in self.up_blocks:
             for i, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                h = self._call(resnet, torch.cat([h, skips.pop()], dim=1), temb)
                 if len(block.attentions):
-                    h = block.attentions[i](h, ctx, **kw)
+                    h = self._call(block.attentions[i], h, ctx, **kw)
             for upsample in getattr(block, "upsamplers", ()):
                 h = upsample(h)
 

@@ -3,14 +3,19 @@ transformer modules around it. Counterparts of `difashion_tpu/nn/attention.py`.
 
 Routing of `sdpa` on CUDA:
   * head dim <= 128 in the kernel's set (16/32/64/128), bf16/fp16: the
-    hand-written kernel (every UNet self- and cross-attention);
+    hand-written kernels (every UNet self- and cross-attention). While
+    autograd records (q, k or v requires grad), through `FlashAttention`:
+    the forward kernel, then the dQ and dK/dV kernels in the backward. Under
+    `no_grad` / `inference_mode` the forward kernel alone, which saves
+    nothing;
   * head dim > 128 (the VAE mid-attention, d = 512, once per decode): plain
     matmul + softmax, as the JAX package computes it outside Pallas;
   * anything else (fp32, d = 40/80 of sd15) raises NotImplementedError until
     its slice.
-On the CPU the kernel's plain version stands in for it (the wrapper decides
-that from the tensor's device). `plain=True` sends a call through the plain
-version on any device; it exists so a run can hold the kernel path against it.
+On the CPU the kernels' plain versions stand in for them (the wrappers decide
+that from the tensor's device). `plain=True` sends a call, forward and
+backward, through the plain versions on any device; it exists so a run can
+hold the kernel path against it.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from torch import nn
 
 from difashion_tpu_torch.nn.kernels.flash_attention import (
     HEAD_DIMS,
+    FlashAttention,
     flash_attention,
     flash_attention_ref,
 )
@@ -46,12 +52,16 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / math.sqrt(d)
     if d > 128:
         return _plain_sdpa(q, k, v, scale)
+    if not (plain or q.device.type == "cpu"
+            or (d in HEAD_DIMS and q.dtype in _KERNEL_DTYPES)):
+        raise NotImplementedError(
+            f"sdpa on CUDA: no kernel yet for head dim {d}, dtype {q.dtype}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale, plain)
     if plain:
         return flash_attention_ref(q, k, v, scale)[0]
-    if q.device.type == "cpu" or (d in HEAD_DIMS and q.dtype in _KERNEL_DTYPES):
-        return flash_attention(q, k, v, scale)[0]
-    raise NotImplementedError(
-        f"sdpa on CUDA: no kernel yet for head dim {d}, dtype {q.dtype}")
+    return flash_attention(q, k, v, scale)[0]
 
 
 class CrossAttention(nn.Module):

@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their build.
 
-Each kernel's source is `difashion_tpu_torch/csrc/<name>.cu`, compiled with
-`nvcc` for `sm_90a` into a shared library with a plain C interface at first
-use (into `difashion_tpu_torch/_build/`, keyed by the source's hash) and
-loaded with `ctypes`. Nothing here is compiled or loaded at import time, so
+Each kernel's source is `difashion_tpu_torch/csrc/<name>.cu` (with the shared
+headers `csrc/*.cuh`), compiled with `nvcc` for `sm_90a` into a shared library
+with a plain C interface at first use (into `difashion_tpu_torch/_build/`,
+keyed by the hash of the source and the headers) and loaded with `ctypes`. Nothing here is compiled or loaded at import time, so
 the package imports on machines without a GPU or a CUDA toolkit.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper has made. A run resets
@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-KERNELS = ("flash_attention_fwd",)
+KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -56,7 +56,10 @@ def build(name: str) -> Tuple[Path, str]:
     source exists. Returns (library path, compiler log: ptxas register and
     spill report, empty when the library was already built)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out, ""

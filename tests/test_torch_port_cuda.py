@@ -1,4 +1,5 @@
-"""The flash-attention CUDA kernel against its plain version, on the card.
+"""The flash-attention CUDA kernels (forward, dQ, dK/dV) against their plain
+versions, on the card.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with the CUDA toolkit, is
 marked `cuda`, and skips elsewhere. The module imports torch only (no JAX), so
@@ -13,7 +14,12 @@ import torch
 from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.attention import sdpa
 from difashion_tpu_torch.nn.kernels.flash_attention import (
+    attention_delta,
     flash_attention,
+    flash_attention_dkv,
+    flash_attention_dkv_ref,
+    flash_attention_dq,
+    flash_attention_dq_ref,
     flash_attention_ref,
 )
 
@@ -103,3 +109,75 @@ def test_wrapper_rejects(dev):
         flash_attention(q[..., :48], k[..., :48], v[..., :48])
     with pytest.raises(ValueError):
         flash_attention(q, k[:, :, :, :32], v)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_backward_kernels_match_plain(dev, b, h, sq, skv, d, dtype):
+    q, k, v = _qkv(b, h, sq, skv, d, dtype, dev, seed=2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    do = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)  # random cotangent
+    o, lse = flash_attention(q, k, v)
+    delta = attention_delta(o, do)
+    scale = d ** -0.5
+    dq = flash_attention_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    rdq = flash_attention_dq_ref(q, k, v, do, lse, delta, scale)
+    rdk, rdv = flash_attention_dkv_ref(q, k, v, do, lse, delta, scale)
+    # the plain versions round P and dS to the input dtype where the kernels
+    # do; what is left is the order of the fp32 sums, ex2.approx, and the odd
+    # 16-bit rounding of P or dS that falls the other way
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= 1e-2
+
+
+def test_backward_layout_and_launch_counts(dev):
+    b, s, h, d = 2, 300, 5, 64
+    g = torch.Generator(device=dev).manual_seed(4)
+    proj = torch.randn(4, b, s, h * d, generator=g, device=dev).bfloat16()
+    q, k, v, do = (t.view(b, s, h, d).transpose(1, 2) for t in proj)
+    o, lse = flash_attention(q, k, v)
+    delta = attention_delta(o, do)
+    kernels.reset_launches()
+    dq = flash_attention_dq(q, k, v, do, lse, delta, d ** -0.5)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, d ** -0.5)
+    assert kernels.LAUNCHES["flash_attention_dq"] == 1
+    assert kernels.LAUNCHES["flash_attention_dkv"] == 1
+    # gradients are laid out as [B, S, H, D]: the projections' backward reads
+    # them without a copy
+    for t in (dq, dk, dv):
+        assert t.transpose(1, 2).is_contiguous()
+    # a contiguous dO gives the same result as the strided one; and the same
+    # result again (no atomics)
+    dq2 = flash_attention_dq(q, k, v, do.contiguous(), lse, delta, d ** -0.5)
+    dk2, dv2 = flash_attention_dkv(q, k, v, do.contiguous(), lse, delta, d ** -0.5)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_sdpa_autograd_routes_through_the_kernels(dev):
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 5, 256, 77, 64, torch.bfloat16, dev,
+                                                 seed=5))
+    do = torch.randn(2, 5, 256, 64, device=dev).bfloat16()
+    kernels.reset_launches()
+    out = sdpa(q, k, v)
+    out.backward(do)
+    assert dict(kernels.LAUNCHES) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                                      "flash_attention_dkv": 1}
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    sdpa(q, k, v, plain=True).backward(do)
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 1
+    for got, t in zip(grads, (q, k, v)):
+        assert _rel(got, t.grad) <= 2e-2
+    # without autograd the forward kernel runs alone and saves nothing
+    with torch.no_grad():
+        assert sdpa(q, k, v).grad_fn is None
+    assert kernels.LAUNCHES["flash_attention_dq"] == 1

@@ -28,8 +28,9 @@ def _sources():
 
 def test_port_imports_no_jax_in_a_fresh_interpreter():
     mods = _modules()
-    assert "difashion_tpu_torch.engine.generate" in mods
-    assert "difashion_tpu_torch.nn.kernels.flash_attention" in mods
+    for mod in ("engine.generate", "engine.train", "engine.optim8bit",
+                "nn.kernels.flash_attention"):
+        assert f"difashion_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
