@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-It drives the port's two paths at the sd2_base widths through the entry
-points a user calls, DiFashion's GOR generation and its training step, and
-checks every hand-written kernel of those paths against its plain PyTorch
-version. Phases, one JSON line each:
+It drives the port's three paths at the sd2_base widths through the entry
+points a user calls, DiFashion's GOR generation, its training step and the
+catalog precompute (VAE encode at 512 px), and checks every hand-written
+kernel of those paths against its plain PyTorch version. Phases, one JSON
+line each:
 
   1. device: the card (and its name and power limit as nvidia-smi prints
      them, on a line of their own); TF32 off wherever fp32 is compared;
@@ -17,15 +18,28 @@ version. Phases, one JSON line each:
      4 items) and a few short and ragged ones, with its time, the plain
      version's, one library call's (F.scaled_dot_product_attention, timed as
      a yardstick only) and the card's lower bound for the same work;
+  3b. kernel_gn: the GroupNorm(+SiLU) kernel against its plain version at
+     every distinct GroupNorm shape of the sampler's UNet forward (batch 16),
+     the train step's (batch 8), the VAE decode (batch 4) and the VAE encode
+     at the precompute batch (64, 2^31 elements at its first level), in bf16
+     and fp32, with and without SiLU, with its time, the plain version's,
+     the library's (F.group_norm then F.silu, a yardstick only) and the
+     bound;
   4. reference: the whole generation path at the tiny config on the card
      (fp16) against the port's CPU fp32 run of the same weights and inputs;
   5. unet: one full-width sd2_base UNet forward (bf16, seeded weights, batch
-     16) with attention through the kernel against one through the plain
-     version;
+     16) through the kernels against one through the plain versions;
   6. main_path: GOR, 1 outfit of 4 items, 4-branch CFG (12 / 4 / 5),
      eta 0.1, 50-step PNDM (51 UNet forwards), text encoding and the decode
-     to uint8 at 512 px; the launch counts of that run (no backward launch);
+     to uint8 at 512 px; the launch counts of that run (no backward launch,
+     61 GroupNorms per UNet forward and 30 in the decode);
   7. profile: the CUDA kernels of one UNet forward by device time;
+  7b. precompute: `data/precompute.py::encode_catalog` over 200 synthetic
+     catalog items at 512 px (3 batches of 64 and one of 8) through the
+     sd2_base VAE in bf16, then `build_processed_cache` on a synthetic
+     outfit table and history; seconds per 1000 items, peak memory, 22
+     GroupNorm launches per batch, and one batch's moments through the
+     kernels and through the plain versions, both against fp32;
   8. kernel_bwd: the dQ and dK/dV kernels against the plain backward at the
      training UNet's attention shapes (batch 8 = 2 outfits x 4 items) and the
      ragged ones, both held against the plain backward in fp32, with their
@@ -39,7 +53,8 @@ version. Phases, one JSON line each:
  11. train: the sd2_base recipe through `engine/train.py::build_train_step`
      (fp32 master weights, bf16 autocast, AdamW, EMA, min-SNR, batch 2 x 4),
      2 warm-up and 10 timed steps, with the launches of every step; then one
-     step with gradient checkpointing and one with 8-bit AdamW;
+     step with gradient checkpointing, one with 8-bit AdamW and one on an
+     image batch (the VAE encoder inside the step);
  12. profile_train: one training step by CUDA kernel and its split into
      forward, backward and optimizer/EMA.
 
@@ -87,6 +102,17 @@ TRAIN_REF_FACTOR, TRAIN_REF_LOSS_TOL = 2.0, 1e-2
 # train: EMA moves by (1 - d) of the way to the new parameters; fp32 rounding
 # of parameters ~0.05 against steps of ~1e-5 leaves ~1e-3 of that fraction
 EMA_FRACTION_TOL = 1e-2
+# GroupNorm kernel vs plain: fp32 within 1e-5 (+ 1e-5 relative), the same
+# fp32 statistics summed in another order. bf16 within one unit in the last
+# place of the plain version's rounding, of y or, after SiLU, of the y it was
+# computed from (2^-7 of the value), plus 1e-5 for the fp32 rounding of
+# x * a + b near zero. The precompute's moments through the kernels may be no
+# farther from fp32 than 1.25x the plain versions' (VS_PLAIN).
+GN_TOL = 1e-5
+GN_BF16_ULP = 2.0 ** -7
+DECODE_BATCH = 4           # the main path's 4 items
+PRECOMPUTE_BATCH = 64      # encode_catalog's default, the reference's batch
+PRECOMPUTE_ITEMS = 200     # 3 batches of 64 and a ragged one of 8
 CFG_SCALES = (12.0, 4.0, 5.0)
 STEPS = 50
 ETA = 0.1
@@ -253,6 +279,124 @@ def phase_kernel(sites):
     return results
 
 
+def phase_precompute(model):
+    """The catalog precompute at the sd2_base widths: `encode_catalog` over
+    PRECOMPUTE_ITEMS synthetic 512 px items (item 0 the white null image)
+    from an in-memory loader, in batches of PRECOMPUTE_BATCH through the bf16
+    VAE (after one warm-up batch), then `build_processed_cache` on a
+    synthetic outfit table and history, read back. Then the last (ragged)
+    batch once more through the kernels, through the plain versions, and in
+    fp32 through the plain versions: the kernels' moments may be no farther
+    from fp32 than VS_PLAIN times the plain versions'."""
+    import copy
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from difashion_tpu_torch.data.datasets import FashionData, OutfitTable
+    from difashion_tpu_torch.data.precompute import (
+        build_processed_cache,
+        encode_catalog,
+        load_processed,
+    )
+    from difashion_tpu_torch.data.tokenizer import HashTokenizer
+    from difashion_tpu_torch.nn import kernels
+
+    vcfg = model.config.vae
+    px, lat = vcfg.sample_size, vcfg.sample_size // vcfg.scale_factor
+    rng = np.random.RandomState(11)
+    catalog = rng.randint(0, 256, (PRECOMPUTE_ITEMS, px, px, 3), dtype=np.uint8)
+    catalog[0] = 255
+    loader = lambda i: catalog[i].astype(np.float32) / 127.5 - 1.0
+    encode_catalog(model, loader, PRECOMPUTE_BATCH, batch_size=PRECOMPUTE_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    moments = encode_catalog(model, loader, PRECOMPUTE_ITEMS, batch_size=PRECOMPUTE_BATCH)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    batches = -(-PRECOMPUTE_ITEMS // PRECOMPUTE_BATCH)
+    per_batch = count_groupnorms(model.vae.encoder)
+    want = {"flash_attention_fwd": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "group_norm_silu": batches * per_batch}
+    shape = (PRECOMPUTE_ITEMS, lat, lat, vcfg.latent_channels)
+    finite = all(bool(np.isfinite(v).all()) for v in moments.values())
+    shapes_ok = all(v.shape == shape and v.dtype == np.float32 for v in moments.values())
+
+    n_rows = 256
+    cates = {c: f"category {c}" for c in range(1, 51)}
+    table = OutfitTable.from_dict({
+        "uids": list(rng.randint(1, 33, n_rows)), "oids": list(range(n_rows)),
+        "outfits": list(rng.randint(1, PRECOMPUTE_ITEMS, (n_rows, 4))),
+        "category": list(rng.randint(1, 51, (n_rows, 4)))})
+    history = {uid: {int(c): list(rng.randint(1, PRECOMPUTE_ITEMS, rng.randint(1, 6)))
+                     for c in rng.randint(1, 51, 4)} for uid in range(1, 33)}
+    data = FashionData(train=table, fitb_valid=None, fitb_test=None, valid_grd=None,
+                       test_grd=None, history={"train": history}, id_cate_dict=cates,
+                       cate_iid_dict=None, retrieval_candidates={})
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        files = build_processed_cache(tmp, data, cates, HashTokenizer(), moments,
+                                      vcfg.scaling_factor)
+        cache_seconds = time.perf_counter() - t1
+        back = load_processed(tmp, "all_item_moments")
+        hist = np.load(files["train_hist_latents"], allow_pickle=True).item()
+        with np.load(files["new_train"]) as z:
+            ids_shape = list(z["input_ids"].shape)
+        uid = next(iter(history))
+        cid = next(iter(history[uid]))
+        mean_latent = (moments["mean"][np.asarray(history[uid][cid])].mean(0)
+                       * vcfg.scaling_factor)
+        cache_ok = (np.array_equal(back["mean"], moments["mean"])
+                    and np.array_equal(back["logvar"], moments["logvar"])
+                    and np.allclose(hist[uid][cid], mean_latent, rtol=1e-5, atol=1e-6)
+                    and np.array_equal(hist["null"], moments["mean"][0] * vcfg.scaling_factor)
+                    and ids_shape == [n_rows, 4, 77])
+
+    # one batch of the loop by its parts: the host loader, then the encode
+    t1 = time.perf_counter()
+    imgs = np.stack([loader(i) for i in range(PRECOMPUTE_BATCH)])
+    loader_ms = (time.perf_counter() - t1) * 1e3
+    x = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        prof = device_profile(lambda: model.vae.encode(x))
+    del x, imgs
+    torch.cuda.empty_cache()
+
+    n = PRECOMPUTE_ITEMS % PRECOMPUTE_BATCH or PRECOMPUTE_BATCH
+    last = lambda i: loader(PRECOMPUTE_ITEMS - n + i)
+    both = lambda m: np.concatenate([m["mean"].ravel(), m["logvar"].ravel()])
+    fast = both(encode_catalog(model, last, n, batch_size=n))
+    with kernels.plain_versions():
+        plain = both(encode_catalog(model, last, n, batch_size=n))
+        vae32 = copy.deepcopy(model.vae).float()
+        ref = both(encode_catalog(types.SimpleNamespace(vae=vae32), last, n, batch_size=n))
+    del vae32
+    torch.cuda.empty_cache()
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    fast_ref, plain_ref = rel(fast, ref), rel(plain, ref)
+    row = {"phase": "precompute", "config": "sd2_base VAE", "dtype": "bfloat16",
+           "items": PRECOMPUTE_ITEMS, "batch": PRECOMPUTE_BATCH, "batches": batches,
+           "image_px": px, "moments_shape": list(shape), "seconds": seconds,
+           "seconds_per_1000_items": seconds / PRECOMPUTE_ITEMS * 1e3,
+           "items_per_second": PRECOMPUTE_ITEMS / seconds, "peak_memory_bytes": peak,
+           "launches": launches, "group_norm_launches_per_batch": per_batch,
+           "finite": finite, "cache_seconds": cache_seconds, "cache_files": sorted(files),
+           "cache_ok": cache_ok, "gate_batch": n, "kernel_vs_fp32_rel_l2": fast_ref,
+           "plain_vs_fp32_rel_l2": plain_ref, "rel_l2": rel(fast, plain),
+           "host_loader_ms_per_batch": loader_ms,
+           "encode_profile": dict(prof, what=f"one VAE encode, batch {PRECOMPUTE_BATCH}")}
+    emit(row)
+    if not (launches == want and finite and shapes_ok and cache_ok
+            and fast_ref <= VS_PLAIN * plain_ref):
+        raise AssertionError(f"precompute: {row}")
+    return launches
+
+
 def phase_kernel_bwd(sites):
     """The dQ and dK/dV kernels at the training UNet's attention shapes and the
     ragged ones: q, k, v in the projections' [B, S, H, D] layout, a random
@@ -330,11 +474,154 @@ def phase_kernel_bwd(sites):
     return results
 
 
+GN_PATHS = (  # (path, batch): every GroupNorm of these runs is a kernel_gn shape
+    ("sampler_unet", UNET_BATCH), ("train_unet", TRAIN_ROWS),
+    ("vae_decode", DECODE_BATCH), ("vae_encode", PRECOMPUTE_BATCH))
+
+
+def groupnorm_sites(cfg):
+    """The GroupNorm calls of each path in GN_PATHS, from a forward of the
+    sd2_base towers on the meta device (shapes only, nothing computed):
+    [{"shape", "groups", "eps", "calls": {path: {act: n}}}] over the
+    distinct (shape, groups, eps)."""
+    import torch
+
+    from difashion_tpu_torch.models.difashion import DiFashion
+    from difashion_tpu_torch.nn import kernels
+    from difashion_tpu_torch.nn.layers import GroupNorm
+
+    with torch.device("meta"):
+        model = DiFashion(cfg)
+    sites, path = {}, None
+
+    def record(mod, args):
+        key = (tuple(args[0].shape), mod.num_groups, mod.eps)
+        site = sites.setdefault(key, {"shape": list(key[0]), "groups": key[1], "eps": key[2],
+                                      "calls": {}})
+        per_act = site["calls"].setdefault(path, {})
+        per_act[mod.act] = per_act.get(mod.act, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, GroupNorm)]
+    u, v = cfg.unet, cfg.vae
+    meta = lambda *shape: torch.empty(*shape, device="meta")
+    with torch.no_grad(), kernels.plain_versions():
+        for path, b in GN_PATHS:
+            if path.endswith("unet"):
+                model.unet(meta(b, u.in_channels, u.sample_size, u.sample_size),
+                           torch.zeros(b, dtype=torch.long, device="meta"),
+                           meta(b, 77, u.cross_attention_dim))
+            elif path == "vae_decode":
+                model.vae.decode(meta(b, v.latent_channels, u.sample_size, u.sample_size))
+            else:
+                model.vae.encode(meta(b, v.in_channels, v.sample_size, v.sample_size))
+    for h in hooks:
+        h.remove()
+    return list(sites.values())
+
+
+def gn_check(got, want, pre, dtype):
+    """(within tolerance, largest |got - want|) of the GroupNorm kernel's
+    output against its plain version's, by batch row to bound memory."""
+    import torch
+
+    ok, worst = True, 0.0
+    for i in range(got.shape[0]):
+        diff = (got[i].float() - want[i].float()).abs()
+        worst = max(worst, diff.max().item())
+        if dtype == torch.float32:
+            tol = GN_TOL + GN_TOL * want[i].abs()
+        else:
+            tol = GN_BF16_ULP * (want[i].float().abs() + pre[i].float().abs()) + GN_TOL
+        ok = ok and bool((diff <= tol).all())
+        del diff, tol
+    return ok, worst
+
+
+def phase_kernel_gn(sites):
+    """The GroupNorm kernel at every site shape, in bf16 and fp32, without
+    and with SiLU: against its plain version on the same inputs, with times
+    and the bound (x read once, y written once, scale and bias read once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from difashion_tpu_torch.nn.kernels.groupnorm import group_norm_silu, group_norm_silu_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = []
+    for site in sites:
+        shape, groups, eps = site["shape"], site["groups"], site["eps"]
+        c = shape[1]
+        scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(c, generator=gen, device="cuda") * 0.2
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype).mul_(2).add_(0.5)
+            pre = group_norm_silu_ref(x, scale, bias, groups, eps)
+            lib_w, lib_b = scale.to(dtype), bias.to(dtype)
+            nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
+            reps = 25 if nbytes < 2e9 else 8
+            for act in (None, "silu"):
+                y = group_norm_silu(x, scale, bias, groups, eps, act)
+                torch.cuda.synchronize()
+                want = pre if act is None else F.silu(pre)
+                ok, err = gn_check(y, want, pre, dtype)
+                ok = ok and bool(torch.isfinite(y).all())
+                del y, want
+
+                def library():
+                    out = F.group_norm(x, groups, lib_w, lib_b, eps)
+                    return F.silu(out) if act else out
+
+                row = {"phase": "kernel_gn", "shape": shape, "groups": groups, "eps": eps,
+                       "dtype": str(dtype).replace("torch.", ""), "act": act,
+                       "elements": x.numel(),
+                       "calls": {p: n.get(act, 0) for p, n in site["calls"].items()},
+                       "max_abs_err": err,
+                       "ms": device_ms(lambda: group_norm_silu(x, scale, bias, groups, eps, act),
+                                       reps=reps),
+                       "plain_ms": device_ms(lambda: group_norm_silu_ref(x, scale, bias, groups,
+                                                                         eps, act),
+                                             reps=reps, warmup=1),
+                       "library_ms": device_ms(library, reps=reps),
+                       "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes"}
+                row["gbytes_per_s"] = nbytes / row["ms"] / 1e6
+                row["ok"] = ok
+                emit(row)
+                results.append(row)
+            del x, pre
+            torch.cuda.empty_cache()
+    bad = [(r["shape"], r["dtype"], r["act"]) for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"group_norm_silu disagrees with its plain version at {bad}")
+    return results
+
+
+def gn_path_totals(results):
+    """Per path of GN_PATHS: the bf16 GroupNorm numbers summed over its calls."""
+    out = {}
+    for path, _ in GN_PATHS:
+        rows = [r for r in results if r["dtype"] == "bfloat16" and r["calls"].get(path)]
+        out[path] = {k: sum(r[k] * r["calls"][path] for r in rows)
+                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        out[path]["calls"] = sum(r["calls"][path] for r in rows)
+    return out
+
+
+def count_groupnorms(module, inside=None):
+    """GroupNorm modules in `module` (each runs once per forward), or only
+    those inside a module of the types `inside`."""
+    from difashion_tpu_torch.nn.layers import GroupNorm
+
+    if inside is None:
+        return sum(isinstance(m, GroupNorm) for m in module.modules())
+    return sum(count_groupnorms(m) for m in module.modules() if isinstance(m, inside))
+
+
 def phase_unet(model):
-    """One sd2_base UNet forward with attention through the kernel and one
-    through the plain version, both in bf16, held against each other; and both
-    against an fp32 forward of the same weights (plain attention), which shows
-    the bf16 noise floor the two paths share."""
+    """One sd2_base UNet forward through the kernels (attention and
+    GroupNorm) and one through their plain versions, both in bf16, held
+    against each other; and both against an fp32 forward of the same weights
+    (plain versions), which shows the bf16 noise floor the two paths share."""
     import torch
 
     from difashion_tpu_torch.nn import kernels
@@ -350,11 +637,12 @@ def phase_unet(model):
     with torch.inference_mode():
         kernels.reset_launches()
         fast = unet(x, t, ctx).float()
-        launches = kernels.LAUNCHES["flash_attention_fwd"]
-        plain = unet(x, t, ctx, plain_attention=True).float()
+        launches = dict(kernels.LAUNCHES)
+        with kernels.plain_versions():
+            plain = unet(x, t, ctx).float()
     unet.float()
-    with torch.inference_mode():
-        ref = unet(x, t, ctx, plain_attention=True)
+    with torch.inference_mode(), kernels.plain_versions():
+        ref = unet(x, t, ctx)
     unet.bfloat16()           # bf16 -> fp32 -> bf16 is exact
     torch.cuda.synchronize()
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
@@ -367,7 +655,9 @@ def phase_unet(model):
           "finite": finite, "kernel_launches": launches})
     # the kernel path may be no farther from fp32 than the plain path, give
     # or take the spread of bf16 rounding between two runs
-    if not (finite and rel(fast, plain) <= UNET_REL_L2_TOL and launches == 32
+    want = {"flash_attention_fwd": 32, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "group_norm_silu": count_groupnorms(unet)}
+    if not (finite and rel(fast, plain) <= UNET_REL_L2_TOL and launches == want
             and fast_ref <= 1.25 * plain_ref):
         raise AssertionError(f"UNet kernel vs plain: rel L2 {rel(fast, plain)}, vs fp32 "
                              f"{fast_ref} / {plain_ref}, finite {finite}, {launches} launches")
@@ -421,8 +711,12 @@ def phase_reference():
 
     cpu = create_difashion(ModelConfig.tiny(), seed=0, device="cpu")
     # 21 UNet forwards, then the decoder's mid-attention (d = 32 at this size)
-    expect = (21 * sum(isinstance(m, CrossAttention) for m in cpu.unet.modules())
-              + sum(isinstance(m, VAEAttention) for m in cpu.vae.decoder.modules()))
+    expect = {"flash_attention_fwd": 21 * sum(isinstance(m, CrossAttention)
+                                              for m in cpu.unet.modules())
+              + sum(isinstance(m, VAEAttention) for m in cpu.vae.decoder.modules()),
+              "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "group_norm_silu": 21 * count_groupnorms(cpu.unet)
+              + count_groupnorms(cpu.vae.decoder)}
     runs = (("cpu", cpu, "cpu"),
             ("cpu_fp16", copy.deepcopy(cpu).to(torch.float16), "cpu"),
             ("cuda", copy.deepcopy(cpu).to("cuda", torch.float16), "cuda"))
@@ -434,7 +728,7 @@ def phase_reference():
         kernels.reset_launches()
         latents = sampler(inputs)
         out[name] = (latents.cpu(), decode_to_uint8(model, latents).cpu(),
-                     kernels.LAUNCHES["flash_attention_fwd"])
+                     dict(kernels.LAUNCHES))
     ref, ref_img, _ = out["cpu"]
 
     def diff(name):
@@ -477,6 +771,7 @@ def phase_train_reference():
     cfg, tc = ModelConfig.tiny(), TrainConfig()
     cpu = create_difashion(cfg, seed=0, device="cpu").prepare_for_training()
     n_attn = sum(isinstance(m, CrossAttention) for m in cpu.unet.modules())
+    n_gn = count_groupnorms(cpu.unet)
     rng = np.random.RandomState(0)
     B, olen, h, C = 2, 4, cfg.unet.sample_size, cfg.vae.latent_channels
     n = B * olen
@@ -511,7 +806,8 @@ def phase_train_reference():
     loss, grads, launches = run(copy.deepcopy(cpu).to("cuda"), "cuda", True)
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
     grad_rel, floor = rel_l2(grads, ref_grads), rel_l2(cpu_grads, ref_grads)
-    expect = {name: n_attn for name in kernels.LAUNCHES}
+    expect = {"flash_attention_fwd": n_attn, "flash_attention_dq": n_attn,
+              "flash_attention_dkv": n_attn, "group_norm_silu": n_gn}
     finite = bool(np.isfinite(loss) and torch.isfinite(grads).all())
     emit({"phase": "train_reference", "config": "tiny", "dtype": "bfloat16 autocast",
           "loss_cpu_fp32": ref_loss, "loss_cuda_bf16": loss, "loss_rel_diff": loss_rel,
@@ -590,20 +886,23 @@ def phase_main_path(model):
     seconds = sum(ms.values()) / 1e3
     finite = bool(torch.isfinite(latents).all())
     expect = (STEPS + 1) * 32
+    gn_expect = (STEPS + 1) * count_groupnorms(model.unet) + count_groupnorms(model.vae.decoder)
     emit({"phase": "main_path", "config": "sd2_base", "dtype": "bfloat16",
           "mode": "GOR", "outfits": 1, "items": 4, "steps": STEPS,
           "unet_forwards": STEPS + 1, "cfg_branches": 4, "eta": ETA,
           "images_shape": list(images.shape), "images_dtype": str(images.dtype),
           "latents_finite": finite, "launches": launches,
-          "expected_flash_launches": expect, "seconds_per_outfit": seconds,
+          "expected_flash_launches": expect, "expected_group_norm_launches": gn_expect,
+          "seconds_per_outfit": seconds,
           "wall_seconds": wall, **ms, "ms_per_unet_step": ms["sampler_ms"] / (STEPS + 1),
           "peak_memory_bytes": peak})
     if tuple(images.shape) != (4, 512, 512, 3) or images.dtype != torch.uint8:
         raise AssertionError(f"main path images {tuple(images.shape)} {images.dtype}")
     if not finite:
         raise AssertionError("main path latents are not finite")
-    # generation runs under inference_mode: the forward kernel alone, no backward
-    want = {"flash_attention_fwd": expect, "flash_attention_dq": 0, "flash_attention_dkv": 0}
+    # generation runs under inference_mode: the forward kernels alone, no backward
+    want = {"flash_attention_fwd": expect, "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "group_norm_silu": gn_expect}
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
     return launches
@@ -611,6 +910,7 @@ def phase_main_path(model):
 
 # CUDA kernel names -> what they do, first match wins
 PROFILE_CATEGORIES = [
+    ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_dq", ("flash_dq_kernel",)),
     ("flash_attention_dkv", ("flash_dkv_kernel",)),
@@ -619,16 +919,47 @@ PROFILE_CATEGORIES = [
     ("convolution", ("fprop", "dgrad", "wgrad", "implicit_gemm", "conv", "cudnn")),
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas")),
     ("optimizer and EMA (foreach)", ("multi_tensor_apply", "foreach")),
+    ("softmax (VAE mid-attention)", ("softmax", "SoftMax")),
     ("elementwise and copies", ("elementwise", "copy", "reduce", "cat")),
 ]
+
+
+def device_profile(fn, top=15):
+    """One call of `fn` (already warmed up) timed on the host, then one under
+    torch.profiler: host wall ms, device kernel ms, the device's busy share,
+    device ms by PROFILE_CATEGORIES, and the `top` kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((evt.self_device_time_total, evt.key, evt.count)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
+                  reverse=True)
+    device_ms_total = sum(r[0] for r in rows) / 1e3
+    by_category = {}
+    for us, key, _ in rows:
+        cat = next((c for c, marks in PROFILE_CATEGORIES if any(m in key for m in marks)),
+                   "other")
+        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
+    return {"host_wall_ms": wall_ms, "device_kernel_ms": device_ms_total,
+            "device_busy_share": device_ms_total / wall_ms,
+            "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
+            "top": [{"name": k[:100], "ms": us / 1e3, "calls": c} for us, k, c in rows[:top]]}
 
 
 def phase_profile(model):
     """Device time of one UNet forward by CUDA kernel (torch.profiler), and the
     device's busy share against the host time of an unprofiled forward."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     cfg = model.config.unet
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -638,37 +969,19 @@ def phase_profile(model):
     ctx = torch.randn(UNET_BATCH, 77, cfg.cross_attention_dim, generator=gen, device="cuda")
     with torch.inference_mode():
         model.apply_unet(x, t, ctx)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.apply_unet(x, t, ctx)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.apply_unet(x, t, ctx)
-            torch.cuda.synchronize()
-    rows = sorted(((evt.self_device_time_total, evt.key, evt.count)
-                   for evt in prof.key_averages()
-                   if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
-                  reverse=True)
-    device_ms = sum(r[0] for r in rows) / 1e3
-    by_category = {}
-    for us, key, _ in rows:
-        cat = next((c for c, marks in PROFILE_CATEGORIES if any(m in key for m in marks)),
-                   "other")
-        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
-    emit({"phase": "profile", "what": "one sd2_base UNet forward, batch 16, bf16",
-          "host_wall_ms": wall_ms, "device_kernel_ms": device_ms,
-          "device_busy_share": device_ms / wall_ms,
-          "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
-          "top": [{"name": k[:100], "ms": us / 1e3, "calls": c} for us, k, c in rows[:15]]})
+        prof = device_profile(lambda: model.apply_unet(x, t, ctx))
+    emit({"phase": "profile", "what": "one sd2_base UNet forward, batch 16, bf16", **prof})
 
 
 def phase_unet_grad(model):
     """One full-width UNet forward and backward at batch 4 under bf16 autocast
-    over fp32 weights, with a random cotangent on the output: attention
-    through the three kernels against attention through the plain versions,
-    on the gradient of every UNet parameter; and both against an fp32 run
-    with plain attention, which shows the bf16 noise floor they share."""
+    over fp32 weights, with a random cotangent on the output: through the
+    kernels (attention forward and backward, GroupNorm) against the plain
+    versions, on the gradient of every UNet parameter; and both against an
+    fp32 run through the plain versions, which shows the bf16 noise floor
+    they share."""
+    import contextlib
+
     import torch
 
     from difashion_tpu_torch.nn import kernels
@@ -685,9 +998,10 @@ def phase_unet_grad(model):
     def grads(bf16, plain):
         for p in unet.parameters():
             p.grad = None
-        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
-            out = unet(x, t, ctx, plain_attention=plain)
-        out.float().backward(ct)
+        with kernels.plain_versions() if plain else contextlib.nullcontext():
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                out = unet(x, t, ctx)
+            out.float().backward(ct)
         g = torch.cat([p.grad.reshape(-1) for p in unet.parameters()])
         for p in unet.parameters():
             p.grad = None
@@ -707,16 +1021,18 @@ def phase_unet_grad(model):
           "finite": finite, "kernel_launches": launches})
     del fast, plain, ref
     torch.cuda.empty_cache()
-    want = {name: 32 for name in launches}
+    want = {"flash_attention_fwd": 32, "flash_attention_dq": 32, "flash_attention_dkv": 32,
+            "group_norm_silu": count_groupnorms(unet)}
     if not (finite and launches == want and fast_ref <= VS_PLAIN * plain_ref):
         raise AssertionError(f"UNet gradient kernel vs plain: vs fp32 {fast_ref} / {plain_ref}, "
                              f"finite {finite}, launches {launches}")
 
 
 def train_inputs(model, tc, seed):
-    """`n` synthetic moment batches of the recipe's shape (train_batch_size
-    outfits x 4 items, latents as the VAE's moments) and the null
-    conditions, made on the card from `seed`."""
+    """A maker of synthetic batches of the recipe's shape (train_batch_size
+    outfits x 4 items; latents as the VAE's moments, or with `images=True`
+    512 px images in [-1, 1] that the step encodes) and the null conditions,
+    made on the card from `seed`."""
     import torch
 
     from difashion_tpu_torch.engine.train import TrainBatch
@@ -727,13 +1043,19 @@ def train_inputs(model, tc, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
 
-    def batch():
+    def batch(images=False):
+        ids = torch.randint(0, cfg.text.vocab_size, (B, olen, 77), generator=gen,
+                            device="cuda")
+        if images:
+            px = cfg.vae.sample_size
+            return TrainBatch(
+                images=torch.rand(B, olen, px, px, 3, generator=gen, device="cuda") * 2 - 1,
+                latent_mean=None, latent_logvar=None, input_ids=ids,
+                hist_latents=r(B, olen, s, s, C) * 0.3)
         return TrainBatch(
             images=None, latent_mean=r(B, olen, s, s, C) * 4.0,
             latent_logvar=torch.rand(B, olen, s, s, C, generator=gen, device="cuda") * 6 - 8,
-            input_ids=torch.randint(0, cfg.text.vocab_size, (B, olen, 77), generator=gen,
-                                    device="cuda"),
-            hist_latents=r(B, olen, s, s, C) * 0.3)
+            input_ids=ids, hist_latents=r(B, olen, s, s, C) * 0.3)
     with torch.no_grad():
         null_text = model.encode_text(torch.zeros(1, 77, dtype=torch.long, device="cuda"))[0]
     return batch, r(s, s, C) * 0.05, null_text
@@ -747,7 +1069,8 @@ def phase_train(model):
     autocast, AdamW lr 1e-5, clip 1.0, EMA, min-SNR 5, the dropout windows,
     eta 0.1, 2 outfits x 4 items) through build_train_step: warm-up steps,
     then timed steps with CUDA events and the launches of each step; then one
-    step with gradient checkpointing and one with 8-bit AdamW."""
+    step with gradient checkpointing, one with 8-bit AdamW and one on an
+    image batch, whose VAE encode (no gradient) runs inside the step."""
     import torch
 
     from difashion_tpu_torch.config import TrainConfig
@@ -792,7 +1115,9 @@ def phase_train(model):
     moved = (state.ema.params[watch] - ema_before).norm() / (p_after - ema_before).norm()
     ema_fraction = moved.item()
     params_changed = not torch.equal(before, p_after)
-    want = {"flash_attention_fwd": 32, "flash_attention_dq": 32, "flash_attention_dkv": 32}
+    n_gn = count_groupnorms(model.unet)
+    want = {"flash_attention_fwd": 32, "flash_attention_dq": 32, "flash_attention_dkv": 32,
+            "group_norm_silu": n_gn}
     seconds = sum(step_ms) / TRAIN_STEPS / 1e3
     emit({"phase": "train", "config": "sd2_base", "recipe": "TrainConfig()",
           "dtype": "fp32 weights, bf16 autocast", "rows_per_step": TRAIN_ROWS,
@@ -810,10 +1135,20 @@ def phase_train(model):
                              f"EMA fraction {ema_fraction} vs {1 - decay}")
     train_launches = rows[-1][1]
     del state, rows
+    # checkpointing recomputes every ResnetBlock2D and Transformer2D in the
+    # backward; the image batch adds the encoder's GroupNorms
+    from difashion_tpu_torch.nn.attention import Transformer2D
+    from difashion_tpu_torch.nn.layers import ResnetBlock2D
+
+    recomputed = count_groupnorms(model.unet, (ResnetBlock2D, Transformer2D))
     variants = [("gradient_checkpointing", TrainConfig(gradient_checkpointing=True),
-                 dict(want, flash_attention_fwd=64)),
-                ("use_8bit_adam", TrainConfig(use_8bit_adam=True), want)]
-    for name, vc, vwant in variants:
+                 dict(want, flash_attention_fwd=64, group_norm_silu=n_gn + recomputed),
+                 batches[0]),
+                ("use_8bit_adam", TrainConfig(use_8bit_adam=True), want, batches[0]),
+                ("image_batch", TrainConfig(), dict(
+                    want, group_norm_silu=n_gn + count_groupnorms(model.vae.encoder)),
+                 batch(images=True))]
+    for name, vc, vwant, vbatch in variants:
         for p in model.parameters():
             p.grad = None
         torch.cuda.empty_cache()
@@ -823,7 +1158,7 @@ def phase_train(model):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        vstate, m = vstep(vstate, batches[0], null_latent, null_text, gen)
+        vstate, m = vstep(vstate, vbatch, null_latent, null_text, gen)
         torch.cuda.synchronize()
         row = {"phase": "train", "variant": name, "remat_policy": vc.remat_policy
                if vc.gradient_checkpointing else None, "first_step_seconds":
@@ -849,8 +1184,6 @@ def phase_profile_train(model):
     the train step's own pieces (`difashion_loss`, `backward`,
     `apply_gradients`)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from difashion_tpu_torch.config import TrainConfig
     from difashion_tpu_torch.engine.train import (
@@ -887,29 +1220,9 @@ def phase_profile_train(model):
         splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
     split = {k: statistics.median(s[i] for s in splits)
              for i, k in enumerate(("forward_ms", "backward_ms", "optimizer_ema_ms"))}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = step(state, b, null_latent, null_text, gen)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, b, null_latent, null_text, gen)
-        torch.cuda.synchronize()
-    rows = sorted(((evt.self_device_time_total, evt.key, evt.count)
-                   for evt in prof.key_averages()
-                   if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
-                  reverse=True)
-    device_ms_total = sum(r[0] for r in rows) / 1e3
-    by_category = {}
-    for us, key, _ in rows:
-        cat = next((c for c, marks in PROFILE_CATEGORIES if any(m in key for m in marks)),
-                   "other")
-        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
+    prof = device_profile(lambda: step(state, b, null_latent, null_text, gen), top=20)
     emit({"phase": "profile_train", "what": "one sd2_base recipe step, 2 x 4 rows",
-          "split_ms": split, "host_wall_ms": wall_ms, "device_kernel_ms": device_ms_total,
-          "device_busy_share": device_ms_total / wall_ms,
-          "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
-          "top": [{"name": k[:100], "ms": us / 1e3, "calls": c} for us, k, c in rows[:20]]})
+          "split_ms": split, **prof})
     del state
     for p in model.parameters():
         p.grad = None
@@ -938,11 +1251,31 @@ def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
             "shapes": [{k: r[k] for k in keys} for r in rows]}
 
 
-def kernels_line(results, launches, bwd_results, train_launches):
+def gn_entry(gn_results, launches, train_launches, precompute_launches):
+    """The GroupNorm kernel's entry of the kernels line: numbers per sampler
+    UNet forward (61 calls at batch 16, bf16) and per call of every path,
+    launches the main path's."""
+    totals = gn_path_totals(gn_results)
+    main = totals["sampler_unet"]
+    return {"name": "group_norm_silu", "route": "cuda",
+            "source": "difashion_tpu_torch/csrc/group_norm_silu.cu",
+            "replaces": "difashion_tpu/nn/pallas/groupnorm.py:40",
+            "launches": launches["group_norm_silu"],
+            "max_abs_err": max(r["max_abs_err"] for r in gn_results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": main["library_ms"],
+            "library": "F.group_norm then F.silu in the input dtype",
+            "per": f"one sampler UNet forward ({main['calls']} calls, bf16)",
+            "per_path": totals, "train_step_launches": train_launches["group_norm_silu"],
+            "precompute_launches": precompute_launches["group_norm_silu"]}
+
+
+def kernels_line(results, launches, bwd_results, train_launches, gn_results,
+                 precompute_launches):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
-    step's."""
+    step's; the GroupNorm kernel's as `gn_entry` says."""
     fwd_rows = [dict(r, ms=r["kernel_ms"]) for r in results]
     library = ("F.scaled_dot_product_attention's backward, computing dQ, dK and dV "
                "together: the same number on both backward entries")
@@ -960,6 +1293,7 @@ def kernels_line(results, launches, bwd_results, train_launches):
                      "one train step", train_launches["flash_attention_dkv"],
                      replaces=pallas + "191", library=library,
                      main_path_launches=launches["flash_attention_dkv"]),
+        gn_entry(gn_results, launches, train_launches, precompute_launches),
     ]}
 
 
@@ -981,11 +1315,13 @@ def main():
     if sum(c for *_, c in sites) != 32:
         raise AssertionError(f"expected 32 attentions per UNet forward, got {sites}")
     results = phase_kernel(sites)
+    gn_results = phase_kernel_gn(groupnorm_sites(cfg))
     phase_reference()
     model = create_difashion(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     phase_unet(model)
     launches = phase_main_path(model)
     phase_profile(model)
+    precompute_launches = phase_precompute(model)
     del model
     torch.cuda.empty_cache()
     # the training path, after the generation path: a backward leaves buffers
@@ -998,7 +1334,8 @@ def main():
     phase_unet_grad(model)
     train_launches = phase_train(model)
     phase_profile_train(model)
-    emit(kernels_line(results, launches, bwd_results, train_launches))
+    emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
+                      precompute_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

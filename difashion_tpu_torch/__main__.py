@@ -1,0 +1,25 @@
+"""Command dispatcher: `python -m difashion_tpu_torch <command> [...]`.
+
+Commands ported so far:
+  extract-features   catalog VAE moments (`--stage vae`)
+"""
+import sys
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd in ("extract-features", "extract_features"):
+        from difashion_tpu_torch.cli.extract_features import main as run
+    else:
+        print(f"unknown command {cmd!r}\n{__doc__}")
+        return 2
+    run(rest)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,15 @@
-"""Configuration: the architecture dataclasses and their presets, and the
-training recipe.
+"""Configuration: the architecture dataclasses and their presets, the
+training recipe, the generation and data settings, and the `Config` tree over
+them with its JSON form.
 
-Copies of `difashion_tpu/core/config.py`'s model configs and `TrainConfig`
-(same fields, same defaults, same presets), kept here so the port imports
-nothing of the JAX package. The generation and data configs come with their
-slices.
+Copies of `difashion_tpu/core/config.py` (same fields, same defaults, same
+presets, the same JSON), kept here so the port imports nothing of the JAX
+package.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -223,3 +225,97 @@ class TrainConfig:
     dp_size: int = -1                      # -1 => all available devices
     output_dir: str = "ckpt"
     resume_from_checkpoint: Optional[str] = None  # "latest" or an explicit path
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    """The reference's `run_inf4eval.sh` / inf4eval defaults."""
+
+    num_inference_steps: int = 50
+    category_guidance_scale: float = 12.0
+    hist_guidance_scale: float = 4.0
+    mutual_guidance_scale: float = 5.0
+    eta: float = 0.1
+    scheduler: str = "pndm"               # "pndm" | "ddim" | "dpmpp" (fast serving)
+    ddim_eta: float = 0.0
+    fitb_batch_size: int = 15
+    gor_batch_size: int = 4
+    seed: int = 123
+    height: int = 512
+    width: int = 512
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "polyvore"             # "ifashion" | "polyvore"
+    data_path: str = "datasets/polyvore"
+    img_folder_path: str = "datasets/polyvore/images"
+    img_size: int = 512
+    outfit_length: int = 4                # every outfit record has exactly 4 items
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    generation: GenerationConfig = field(default_factory=GenerationConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+    @staticmethod
+    def preset_eta01() -> "Config":
+        """The canonical training recipe (`run_eta0.1.sh`)."""
+        return Config()
+
+    @staticmethod
+    def preset_tiny() -> "Config":
+        """CPU-runnable miniature for tests."""
+        return Config(
+            model=ModelConfig.tiny(),
+            data=DataConfig(img_size=64),
+            generation=dataclasses.replace(
+                GenerationConfig(), num_inference_steps=5, height=64, width=64
+            ),
+        )
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_dict(d: dict) -> "Config":
+        """The inverse of `to_dict`; missing fields keep their defaults, lists
+        become tuples."""
+        def build(cls, sub):
+            kwargs = {}
+            for f in dataclasses.fields(cls):
+                if f.name not in sub:
+                    continue
+                v = sub[f.name]
+                sub_cls = _SUBCONFIGS.get(f.name)
+                if sub_cls is not None and isinstance(v, dict):
+                    v = build(sub_cls, v)
+                elif isinstance(v, list):
+                    v = tuple(v)
+                kwargs[f.name] = v
+            return cls(**kwargs)
+
+        return build(Config, d)
+
+    @staticmethod
+    def from_json(s: str) -> "Config":
+        return Config.from_dict(json.loads(s))
+
+
+_SUBCONFIGS = {
+    "unet": UNetConfig,
+    "vae": VAEConfig,
+    "text": CLIPTextConfig,
+    "mutual": MutualEncoderConfig,
+    "scheduler": SchedulerConfig,
+    "model": ModelConfig,
+    "train": TrainConfig,
+    "generation": GenerationConfig,
+    "data": DataConfig,
+}

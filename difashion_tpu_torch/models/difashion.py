@@ -57,11 +57,9 @@ class DiFashion(nn.Module):
                 for name, p in getattr(self, tower).named_parameters()]
 
     def apply_unet(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                   encoder_hidden_states: torch.Tensor,
-                   plain_attention: bool = False) -> torch.Tensor:
+                   encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         """sample [B, C_in, h, w] -> epsilon [B, C_out, h, w] in the UNet's dtype."""
-        return self.unet(sample, timesteps, encoder_hidden_states,
-                         plain_attention=plain_attention)
+        return self.unet(sample, timesteps, encoder_hidden_states)
 
     def encode_images(self, images: torch.Tensor, sample: bool = False,
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:

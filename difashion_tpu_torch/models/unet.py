@@ -146,12 +146,12 @@ class UNet2DCondition(nn.Module):
         return self.conv_in.weight.dtype
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor,
-                plain_attention: bool = False) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         """sample [B, C_in, H, W]; timesteps [B] (or a scalar); context
         [B, S, context_dim]. Returns [B, C_out, H, W] in the compute dtype.
-        `plain_attention` sends every attention through the kernel's plain
-        version (to hold the kernel path against it)."""
+        The sample is made contiguous first, so every activation inside is
+        NCHW (a permuted NHWC sample would make the convolutions' outputs
+        channels-last)."""
         cfg, dtype = self.config, self.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
@@ -159,15 +159,14 @@ class UNet2DCondition(nn.Module):
                                        cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(t_emb.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
-        kw = dict(plain=plain_attention)
 
-        h = self.conv_in(sample.to(dtype))
+        h = self.conv_in(sample.to(dtype).contiguous())
         skips = [h]
         for block in self.down_blocks:
             for i, resnet in enumerate(block.resnets):
                 h = self._call(resnet, h, temb)
                 if len(block.attentions):
-                    h = self._call(block.attentions[i], h, ctx, **kw)
+                    h = self._call(block.attentions[i], h, ctx)
                 skips.append(h)
             for down in getattr(block, "downsamplers", ()):
                 h = down(h)
@@ -175,14 +174,14 @@ class UNet2DCondition(nn.Module):
 
         mid = self.mid_block
         h = self._call(mid.resnets[0], h, temb)
-        h = self._call(mid.attentions[0], h, ctx, **kw)
+        h = self._call(mid.attentions[0], h, ctx)
         h = self._call(mid.resnets[1], h, temb)
 
         for block in self.up_blocks:
             for i, resnet in enumerate(block.resnets):
                 h = self._call(resnet, torch.cat([h, skips.pop()], dim=1), temb)
                 if len(block.attentions):
-                    h = self._call(block.attentions[i], h, ctx, **kw)
+                    h = self._call(block.attentions[i], h, ctx)
             for upsample in getattr(block, "upsamplers", ()):
                 h = upsample(h)
 

@@ -1,7 +1,8 @@
 """AutoencoderKL (the SD VAE), NCHW, diffusers key layout. Counterpart of
-`difashion_tpu/models/vae.py`. The encoder is here too, though generation only
-decodes, because a strict load needs every key. The caller applies the
-scaling factor (0.18215).
+`difashion_tpu/models/vae.py`. Generation decodes; the catalog precompute
+(`data/precompute.py`) and a training step on image batches encode. The
+caller applies the scaling factor (0.18215). Inputs are made contiguous
+first, so every activation inside is NCHW, as the GroupNorm kernel reads it.
 """
 from __future__ import annotations
 
@@ -138,11 +139,11 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
         """x [B, 3, H, W] in [-1, 1] -> DiagonalGaussian over [B, C_lat, H/8, W/8]."""
-        moments = self.quant_conv(self.encoder(x.to(self.dtype)))
+        moments = self.quant_conv(self.encoder(x.to(self.dtype).contiguous()))
         mean, logvar = moments.chunk(2, dim=1)
         return DiagonalGaussian(mean, logvar)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, C_lat, h, w] (already divided by the scaling factor) -> [B, 3, H, W]."""
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+        return self.decoder(self.post_quant_conv(z.to(self.dtype).contiguous()))
 

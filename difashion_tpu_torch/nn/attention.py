@@ -13,9 +13,14 @@ Routing of `sdpa` on CUDA:
   * anything else (fp32, d = 40/80 of sd15) raises NotImplementedError until
     its slice.
 On the CPU the kernels' plain versions stand in for them (the wrappers decide
-that from the tensor's device). `plain=True` sends a call, forward and
-backward, through the plain versions on any device; it exists so a run can
-hold the kernel path against it.
+that from the tensor's device). While `kernels.plain_versions()` is open a
+call goes, forward and backward, through the plain versions on any device; it
+exists so a run can hold the kernel path against it.
+
+The residual adds put the residual first (`x + h`): an add takes the memory
+layout of its first operand, and the [B, S, C] -> NCHW view of the
+projections' output is channels-last, which the GroupNorm kernel after it
+would have to copy.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.kernels.flash_attention import (
     HEAD_DIMS,
     FlashAttention,
@@ -45,8 +51,9 @@ def _plain_sdpa(q, k, v, scale):
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         scale: Optional[float] = None, plain: bool = False) -> torch.Tensor:
+         scale: Optional[float] = None) -> torch.Tensor:
     """Non-causal scaled dot-product attention over [B, H, S, D] tensors."""
+    plain = kernels.plain_active()
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -79,8 +86,8 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Dropout(0.0)])
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         context = x if context is None else context
         b, sq, _ = x.shape
         skv = context.shape[1]
@@ -88,7 +95,7 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, sq, self.heads, self.head_dim).transpose(1, 2)
         k = self.to_k(context).view(b, skv, self.heads, self.head_dim).transpose(1, 2)
         v = self.to_v(context).view(b, skv, self.heads, self.head_dim).transpose(1, 2)
-        out = sdpa(q, k, v, plain=plain)
+        out = sdpa(q, k, v)
         out = out.transpose(1, 2).reshape(b, sq, self.heads * self.head_dim)
         return self.to_out[0](out)
 
@@ -105,10 +112,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor,
-                plain: bool = False) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x), plain=plain)
-        x = x + self.attn2(self.norm2(x), context, plain=plain)
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
 
@@ -134,8 +140,7 @@ class Transformer2D(nn.Module):
             for _ in range(depth)
         ])
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor,
-                plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, hgt, wid = x.shape
         h = self.norm(x)
         if self.use_linear_projection:
@@ -144,14 +149,14 @@ class Transformer2D(nn.Module):
             h = self.proj_in(h)
             h = h.permute(0, 2, 3, 1).reshape(b, hgt * wid, h.shape[1])
         for block in self.transformer_blocks:
-            h = block(h, context, plain=plain)
+            h = block(h, context)
         if self.use_linear_projection:
             h = self.proj_out(h)
             h = h.reshape(b, hgt, wid, c).permute(0, 3, 1, 2)
         else:
             h = h.reshape(b, hgt, wid, h.shape[-1]).permute(0, 3, 1, 2)
             h = self.proj_out(h)
-        return h + x
+        return x + h
 
 
 class VAEAttention(nn.Module):
@@ -171,4 +176,4 @@ class VAEAttention(nn.Module):
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
         out = sdpa(q[:, None], k[:, None], v[:, None])[:, 0]
         out = self.to_out[0](out)
-        return out.transpose(1, 2).reshape(b, c, hgt, wid) + x
+        return x + out.transpose(1, 2).reshape(b, c, hgt, wid)

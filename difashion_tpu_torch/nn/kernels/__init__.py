@@ -9,9 +9,15 @@ the package imports on machines without a GPU or a CUDA toolkit.
 `LAUNCHES` counts, per kernel, the launches its wrapper has made. A run resets
 it with `reset_launches()` and reads it afterwards to show which kernels a
 path went through.
+
+`plain_versions()` is the one switch between the kernels and their plain
+PyTorch versions: while it is open, the kernels' callers (`nn.attention.sdpa`,
+`nn.layers.GroupNorm`) compute the plain versions on any device, so that a run
+can hold the kernel path against it. The wrappers themselves never read it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,22 +26,43 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Iterator, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+           "group_norm_silu")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_plain = False
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def plain_versions() -> Iterator[None]:
+    """Within this context every kernel's caller computes the kernel's plain
+    version instead, forward and backward. The flag is process-wide, not
+    per thread, because autograd runs a CUDA backward (and the recompute of a
+    checkpointed block) on a thread of its own: run the backward of a plain
+    forward inside the context too."""
+    global _plain
+    before, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = before
+
+
+def plain_active() -> bool:
+    return _plain
 
 
 def _nvcc() -> str:

@@ -13,6 +13,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from difashion_tpu_torch.nn import kernels
+from difashion_tpu_torch.nn.kernels.groupnorm import (
+    ACTS,
+    GroupNormSiLU,
+    group_norm_silu,
+    group_norm_silu_ref,
+)
+
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
                            flip_sin_to_cos: bool = True,
@@ -48,19 +56,30 @@ class TimestepEmbedding(nn.Module):
 class GroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics (biased variance) and affine, the result
     cast to the input dtype before the optional SiLU, as
-    `difashion_tpu/nn/pallas/groupnorm.py::_gn_silu_ref` computes it."""
+    `difashion_tpu/nn/pallas/groupnorm.py::_gn_silu_ref` computes it.
+
+    On CUDA every call goes through the hand-written kernel (through
+    `GroupNormSiLU` while autograd records), on the CPU through its plain
+    version, and through the plain version on any device while
+    `kernels.plain_versions()` is open."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  act: Optional[str] = None):
         super().__init__(num_groups, num_channels, eps=eps)
-        if act not in (None, "silu"):
+        if act not in ACTS:
             raise ValueError(f"unknown activation {act!r}")
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                         self.bias.float(), self.eps).to(x.dtype)
-        return F.silu(y) if self.act == "silu" else y
+        args = (self.weight, self.bias, self.num_groups, self.eps, self.act)
+        if kernels.plain_active():
+            return group_norm_silu_ref(x, *args)
+        # the kernel reads NCHW; a no-op for the models' activations
+        x = x.contiguous()
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            return GroupNormSiLU.apply(x, *args)
+        return group_norm_silu(x, *args)
 
 
 def conv2d(in_channels: int, out_channels: int, kernel_size: int = 3,

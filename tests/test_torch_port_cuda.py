@@ -1,5 +1,5 @@
-"""The flash-attention CUDA kernels (forward, dQ, dK/dV) against their plain
-versions, on the card.
+"""The CUDA kernels (flash-attention forward, dQ, dK/dV; GroupNorm + SiLU)
+against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with the CUDA toolkit, is
 marked `cuda`, and skips elsewhere. The module imports torch only (no JAX), so
@@ -22,6 +22,7 @@ from difashion_tpu_torch.nn.kernels.flash_attention import (
     flash_attention_dq_ref,
     flash_attention_ref,
 )
+from difashion_tpu_torch.nn.kernels.groupnorm import group_norm_silu, group_norm_silu_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -87,7 +88,8 @@ def test_sdpa_routes(dev):
     kernels.reset_launches()
     out = sdpa(q, k, v)
     assert kernels.LAUNCHES["flash_attention_fwd"] == 1
-    ref = sdpa(q, k, v, plain=True)
+    with kernels.plain_versions():
+        ref = sdpa(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= 3e-2
     assert kernels.LAUNCHES["flash_attention_fwd"] == 1
     # d > 128 (the VAE mid-attention) takes the plain path
@@ -169,11 +171,12 @@ def test_sdpa_autograd_routes_through_the_kernels(dev):
     out = sdpa(q, k, v)
     out.backward(do)
     assert dict(kernels.LAUNCHES) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
-                                      "flash_attention_dkv": 1}
+                                      "flash_attention_dkv": 1, "group_norm_silu": 0}
     grads = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
-    sdpa(q, k, v, plain=True).backward(do)
+    with kernels.plain_versions():
+        sdpa(q, k, v).backward(do)
     assert kernels.LAUNCHES["flash_attention_fwd"] == 1
     for got, t in zip(grads, (q, k, v)):
         assert _rel(got, t.grad) <= 2e-2
@@ -181,3 +184,137 @@ def test_sdpa_autograd_routes_through_the_kernels(dev):
     with torch.no_grad():
         assert sdpa(q, k, v).grad_fn is None
     assert kernels.LAUNCHES["flash_attention_dq"] == 1
+
+
+# ---- GroupNorm (+ SiLU) ------------------------------------------------------
+
+GN_SHAPES = [  # (B, C, H, W, groups): vector and scalar paths, one and many chunks
+    (2, 64, 8, 8, 32),
+    (3, 64, 4, 4, 8),          # the tiny config's groups; HW = 16
+    (1, 96, 7, 7, 32),         # HW = 49: the scalar path
+    (2, 960, 16, 16, 32),      # C/G = 30, the UNet's widest up-level norm
+    (1, 128, 128, 128, 32),    # a VAE level: many chunks per group
+    (2, 4, 1, 1, 2),           # one element per channel
+]
+
+
+def _gn_inputs(shape, groups, dtype, dev, seed=0, offset=0.0):
+    b, c = shape[:2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + offset).to(dtype)
+    scale = torch.randn(c, generator=g, device=dev) * 0.5 + 1
+    bias = torch.randn(c, generator=g, device=dev) * 0.5
+    return x, scale, bias
+
+
+def _gn_close(got, want, pre, dtype):
+    """fp32: 1e-5. 16-bit types: one unit in the last place of the plain
+    version's rounding, of y or (after SiLU) of the y it was computed from
+    (2^-7 of the value for bf16, 2^-10 for fp16), plus 1e-5 for the fp32
+    rounding of y = x * a + b near zero."""
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    return bool((diff <= rel * (want.float().abs() + pre.float().abs()) + 1e-5).all())
+
+
+@pytest.mark.parametrize("b,c,h,w,groups", GN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_kernel_matches_plain(dev, b, c, h, w, groups, dtype, act):
+    x, scale, bias = _gn_inputs((b, c, h, w), groups, dtype, dev)
+    kernels.reset_launches()
+    y = group_norm_silu(x, scale, bias, groups, 1e-6, act)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["group_norm_silu"] == 1
+    pre = group_norm_silu_ref(x, scale, bias, groups, 1e-6)
+    want = group_norm_silu_ref(x, scale, bias, groups, 1e-6, act)
+    assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+    assert bool(torch.isfinite(y).all())
+    assert _gn_close(y, want, pre, dtype)
+    # deterministic: no atomics
+    assert torch.equal(y, group_norm_silu(x, scale, bias, groups, 1e-6, act))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_large_offset(dev, dtype):
+    """|mean| >> std: the (count, mean, M2) merge does not cancel."""
+    x, scale, bias = _gn_inputs((2, 64, 32, 32), 8, dtype, dev, seed=1, offset=100.0)
+    y = group_norm_silu(x, scale, bias, 8, 1e-5)
+    if dtype == torch.bfloat16:
+        pre = group_norm_silu_ref(x, scale, bias, 8, 1e-5)
+        assert _gn_close(y, pre, pre, dtype)
+        return
+    ref = torch.nn.functional.group_norm(x.double(), 8, scale.double(), bias.double(), 1e-5)
+    # y = x * a + b cancels products of about 50 (x ~ 100, a ~ 0.5), whose fp32
+    # rounding (50 * 2^-24 = 3e-6 each) is the floor here; a variance taken as
+    # E[x^2] - E[x]^2 in fp32 would be off by ~2.5e-4 of itself and move y by ~1e-4
+    assert (y.double() - ref).abs().max().item() <= 4e-5
+
+
+def test_group_norm_kernel_beyond_2_31_elements(dev):
+    """65 x 128 x 512 x 512 bf16 (2^31 + 2^25 elements, the VAE encoder's
+    first level one image past the precompute batch): 64-bit offsets."""
+    b, c, s, groups = 65, 128, 512, 32
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(b, c, s, s, generator=g, device=dev, dtype=torch.bfloat16)
+    assert x.numel() > 2 ** 31
+    scale = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = torch.randn(c, generator=g, device=dev) * 0.1
+    y = group_norm_silu(x, scale, bias, groups, 1e-6, "silu")
+    torch.cuda.synchronize()
+    for i in (0, b - 1):
+        pre = group_norm_silu_ref(x[i:i + 1], scale, bias, groups, 1e-6)
+        want = group_norm_silu_ref(x[i:i + 1], scale, bias, groups, 1e-6, "silu")
+        assert _gn_close(y[i:i + 1], want, pre, torch.bfloat16)
+    del x, y
+    torch.cuda.empty_cache()
+
+
+def test_group_norm_wrapper_rejects(dev):
+    x, scale, bias = _gn_inputs((2, 64, 8, 8), 8, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        group_norm_silu(x.transpose(2, 3), scale, bias, 8, 1e-5)      # not contiguous
+    with pytest.raises(ValueError):
+        group_norm_silu(x, scale, bias, 6, 1e-5)                      # 64 % 6
+    with pytest.raises(TypeError):
+        group_norm_silu(x.double(), scale, bias, 8, 1e-5)
+    with pytest.raises(ValueError):
+        group_norm_silu(x, scale.cpu(), bias, 8, 1e-5)
+    with pytest.raises(ValueError):
+        group_norm_silu(x, scale, bias, 8, 1e-5, act="gelu")
+
+
+def test_group_norm_module_routes_through_the_kernel(dev):
+    from difashion_tpu_torch.nn.layers import GroupNorm
+
+    gn = GroupNorm(8, 64, eps=1e-5, act="silu").to(dev)
+    with torch.no_grad():
+        gn.weight.normal_()
+        gn.bias.normal_()
+    x = torch.randn(2, 64, 16, 16, device=dev).bfloat16().requires_grad_()
+    dy = torch.randn(2, 64, 16, 16, device=dev).bfloat16()
+    kernels.reset_launches()
+    with torch.inference_mode():
+        gn(x.detach())
+    # a channels-last input is made contiguous for the kernel
+    gn(x.detach().to(memory_format=torch.channels_last))
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = gn(x)
+    y.backward(dy)
+    assert kernels.LAUNCHES["group_norm_silu"] == 3
+    grads = [t.grad.clone() for t in (x, gn.weight, gn.bias)]
+    for t in (x, gn.weight, gn.bias):
+        t.grad = None
+    with kernels.plain_versions(), torch.autocast("cuda", dtype=torch.bfloat16):
+        y_plain = gn(x)
+        y_plain.backward(dy)
+    assert kernels.LAUNCHES["group_norm_silu"] == 3
+    assert y.dtype == y_plain.dtype == torch.bfloat16
+    pre = group_norm_silu_ref(x.detach(), gn.weight, gn.bias, 8, 1e-5)
+    assert _gn_close(y, y_plain, pre, torch.bfloat16)
+    # the backward recomputes the plain version: the same gradients, but for
+    # the order of the CUDA backward's sums
+    for got, t in zip(grads, (x, gn.weight, gn.bias)):
+        assert got.dtype == t.dtype and _rel(got, t.grad) <= 1e-3

@@ -29,7 +29,9 @@ def _sources():
 def test_port_imports_no_jax_in_a_fresh_interpreter():
     mods = _modules()
     for mod in ("engine.generate", "engine.train", "engine.optim8bit",
-                "nn.kernels.flash_attention"):
+                "nn.kernels.flash_attention", "nn.kernels.groupnorm", "data.datasets",
+                "data.prompts", "data.tokenizer", "data.preprocessing", "data.precompute",
+                "cli.extract_features", "__main__"):
         assert f"difashion_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

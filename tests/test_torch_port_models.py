@@ -22,6 +22,7 @@ from difashion_tpu_torch.models.clip_text import CLIPTextEncoder
 from difashion_tpu_torch.models.difashion import create_difashion
 from difashion_tpu_torch.models.unet import UNet2DCondition
 from difashion_tpu_torch.models.vae import AutoencoderKL
+from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.weights import TOWERS, load_difashion, load_tower, param_count
 
 from golden_oracle import oracle
@@ -224,8 +225,9 @@ def test_bundle_unet_matches_jax(bundle):
     with torch.no_grad():
         got = nhwc(port.apply_unet(nchw(x), torch.from_numpy(t).long(),
                                    torch.from_numpy(ctx)))
-        plain = nhwc(port.apply_unet(nchw(x), torch.from_numpy(t).long(),
-                                     torch.from_numpy(ctx), plain_attention=True))
+        with kernels.plain_versions():
+            plain = nhwc(port.apply_unet(nchw(x), torch.from_numpy(t).long(),
+                                         torch.from_numpy(ctx)))
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_array_equal(got, plain)
 
