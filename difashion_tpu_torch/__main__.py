@@ -2,6 +2,8 @@
 
 Commands ported so far:
   extract-features   catalog VAE moments (`--stage vae`)
+  generate           FITB / GOR generation of a split into a JPEG tree
+  serve              the HTTP generation service
 """
 import sys
 
@@ -14,6 +16,10 @@ def main(argv=None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd in ("extract-features", "extract_features"):
         from difashion_tpu_torch.cli.extract_features import main as run
+    elif cmd == "generate":
+        from difashion_tpu_torch.cli.generate import main as run
+    elif cmd == "serve":
+        from difashion_tpu_torch.cli.serve import main as run
     else:
         print(f"unknown command {cmd!r}\n{__doc__}")
         return 2

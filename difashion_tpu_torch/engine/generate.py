@@ -9,25 +9,26 @@ Each iteration of the loop:
   * runs ONE UNet forward over all CFG branches x fill slots
     ([n_branches * F, 8, h, w]: the eta-mixed latent and the history latent);
   * combines the branches with the `GuidanceSpec` weights;
-  * takes the PNDM (PLMS) update.
+  * takes the scheduler's update: PNDM (PLMS, the reference's), DDIM, or
+    DPM-Solver++(2M) (the fast-serving scheduler).
 
 The public layout is the JAX package's: `GenerationInputs` latents are NHWC
 [F, h, w, C] and `decode_to_uint8` returns [F, H, W, 3] uint8. The sampler
 moves to NCHW once on the way in and back once on the way out. Latents, the
 scheduler and the guidance combine stay in fp32; the UNet, the MutualEncoder
-and the VAE run in their own dtype.
-
-Only the PNDM scheduler is here; DDIM and DPM-Solver++ come with a later
-slice.
+and the VAE run in their own dtype. Every scheduler's plan rows are host
+numbers, so the loop never waits on the device.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from difashion_tpu_torch.diffusion.ddim import ddim_step, make_ddim_plan
+from difashion_tpu_torch.diffusion.dpmpp import dpmpp_init_state, dpmpp_step, make_dpmpp_plan
 from difashion_tpu_torch.diffusion.pndm import make_pndm_plan, pndm_init_state, pndm_step
 from difashion_tpu_torch.models.difashion import DiFashion
 
@@ -98,10 +99,15 @@ def mutual_condition_input(latents: torch.Tensor, outfit_idx: torch.Tensor,
     source[outfit_k, j], where source is the current latent of a generated
     slot and the clean catalog latent of a known one (generation uses the
     unnormalized sum). latents [F, ...], known_latents [B, olen, ...]; any
-    trailing layout."""
+    trailing layout. The sum over the slots is written out as elementwise
+    adds in slot order, so a fill's result does not depend on how many
+    outfits share its batch (a reduction kernel's order may)."""
     cur = latents[gen_index]                                   # [B, olen, ...]
     mask = gen_mask.reshape(gen_mask.shape + (1,) * (latents.dim() - 1))
-    totals = torch.where(mask, cur, known_latents).sum(dim=1)  # [B, ...]
+    source = torch.where(mask, cur, known_latents)
+    totals = source[:, 0]
+    for j in range(1, source.shape[1]):
+        totals = totals + source[:, j]                         # [B, ...]
     return totals[outfit_idx] - latents                        # drop own slot
 
 
@@ -122,21 +128,33 @@ class GenerationInputs(NamedTuple):
 
 def build_sampler(model: DiFashion, *, num_inference_steps: int,
                   spec: GuidanceSpec, eta: float, scheduler: str = "pndm",
-                  return_trajectory: bool = False) -> Callable:
-    """A function inputs -> final latents [F, h, w, C] (fp32, NHWC). With
-    `return_trajectory=True` it returns (final latents, trajectory
-    [L, F, h, w, C]), the latents after every scheduler iteration."""
-    if scheduler in ("ddim", "dpmpp"):
-        raise NotImplementedError(f"scheduler {scheduler!r} comes with a later slice")
-    if scheduler != "pndm":
+                  ddim_eta: float = 0.0, return_trajectory: bool = False) -> Callable:
+    """A function (inputs, generator=None, step_noise=None) -> final latents
+    [F, h, w, C] (fp32, NHWC). With `return_trajectory=True` it returns
+    (final latents, trajectory [L, F, h, w, C]), the latents after every
+    scheduler iteration.
+
+    `scheduler`: "pndm", "ddim" (with `ddim_eta`) or "dpmpp". DDIM with
+    ddim_eta > 0 adds noise at every step: pass `step_noise` [L, F, h, w, C]
+    (NHWC, as the JAX sampler draws it from its rng) or a `torch.Generator`
+    on the latents' device to draw it from; without either it raises."""
+    sched = model.schedule
+    if scheduler == "pndm":
+        plan = make_pndm_plan(sched, num_inference_steps)
+    elif scheduler == "ddim":
+        plan = make_ddim_plan(sched, num_inference_steps, eta=ddim_eta)
+    elif scheduler == "dpmpp":
+        plan = make_dpmpp_plan(sched, num_inference_steps)
+    else:
         raise ValueError(f"unknown scheduler {scheduler!r}")
-    plan = make_pndm_plan(model.schedule, num_inference_steps)
     rows = [plan.row(i) for i in range(len(plan))]
     nb = spec.num_branches
-    pred_type = model.schedule.prediction_type
+    pred_type = sched.prediction_type
+    noisy_ddim = scheduler == "ddim" and ddim_eta > 0.0
 
     @torch.inference_mode()
-    def sample(inputs: GenerationInputs):
+    def sample(inputs: GenerationInputs, generator: Optional[torch.Generator] = None,
+               step_noise: Optional[torch.Tensor] = None):
         dev = inputs.init_latents.device
         f32 = torch.float32
 
@@ -152,6 +170,14 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
         null_lat = inputs.null_latent.to(f32).permute(2, 0, 1)[None, None]
         hist = inputs.hist_latents.to(f32).permute(0, 3, 1, 2)
 
+        if noisy_ddim:
+            if step_noise is None:
+                if generator is None:
+                    raise ValueError("ddim_eta > 0 requires a generator or the step noise")
+                step_noise = torch.randn((len(rows),) + tuple(inputs.init_latents.shape),
+                                         generator=generator, device=dev)
+            step_noise = step_noise.to(device=dev, dtype=f32).permute(0, 1, 4, 2, 3)
+
         # branch-constant inputs, built once
         hist_flat = (hist_sel * hist[None] + (1.0 - hist_sel) * null_lat
                      ).reshape(nb * F, C, h, w)
@@ -159,9 +185,10 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
                   + (1.0 - text_sel) * inputs.null_text.to(f32)[None, None])
         text_flat = text_b.reshape((nb * F,) + text_b.shape[2:])
 
-        state = pndm_init_state(latents)
+        state = (dpmpp_init_state(latents) if scheduler == "dpmpp"
+                 else pndm_init_state(latents))
         traj = []
-        for row in rows:
+        for i, row in enumerate(rows):
             mutual = model.apply_mutual(mutual_condition_input(
                 latents, inputs.outfit_idx, known, inputs.gen_mask,
                 inputs.gen_index)).to(f32)
@@ -171,7 +198,14 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
             t = torch.full((nb * F,), row["t_unet"], dtype=torch.long, device=dev)
             eps = model.apply_unet(x, t, text_flat).to(f32).reshape(nb, F, C, h, w)
             eps = (weights * eps).sum(dim=0)                   # guidance combine
-            state, latents = pndm_step(state, row, eps, latents, pred_type)
+            if scheduler == "pndm":
+                state, latents = pndm_step(state, row, eps, latents, pred_type)
+            elif scheduler == "dpmpp":
+                state, latents = dpmpp_step(state, row, eps, latents, pred_type)
+            else:
+                latents = ddim_step(row, eps, latents, eta=ddim_eta,
+                                    noise=step_noise[i] if noisy_ddim else None,
+                                    prediction_type=pred_type)
             if return_trajectory:
                 traj.append(latents)
 
@@ -181,6 +215,34 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
         return out
 
     return sample
+
+
+def pad_generation_inputs(inputs: GenerationInputs, n: int) -> GenerationInputs:
+    """Pad the fill (F) and outfit (B) leading axes up to multiples of `n`
+    with inert rows (zero latents and text, outfit_idx 0, gen_mask False).
+    Inert rows never feed back into real slots: the mutual gather reads only
+    the slots that the real outfits' gen_mask and gen_index address, and a
+    padded outfit generates nothing. Rows of the sampler's output at or past
+    the original F are padding: slice them off (`latents[:F]`)."""
+    F = int(inputs.init_latents.shape[0])
+    B = int(inputs.gen_mask.shape[0])
+    Fp = -(-F // n) * n
+    Bp = -(-B // n) * n
+    if Fp == F and Bp == B:
+        return inputs
+
+    def pad(x, new):
+        return torch.cat([x, x.new_zeros((new - x.shape[0],) + tuple(x.shape[1:]))])
+
+    return inputs._replace(
+        init_latents=pad(inputs.init_latents, Fp),
+        outfit_idx=pad(inputs.outfit_idx, Fp),
+        hist_latents=pad(inputs.hist_latents, Fp),
+        cate_text=pad(inputs.cate_text, Fp),
+        known_latents=pad(inputs.known_latents, Bp),
+        gen_mask=pad(inputs.gen_mask, Bp),
+        gen_index=pad(inputs.gen_index, Bp),
+    )
 
 
 @torch.inference_mode()

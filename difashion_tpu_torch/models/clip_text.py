@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from difashion_tpu_torch.config import CLIPTextConfig
+from difashion_tpu_torch.nn.layers import Dense
 
 
 def _act(name: str):
@@ -31,10 +32,10 @@ class CLIPAttention(nn.Module):
         self.num_heads = config.num_heads
         self.head_dim = config.hidden_size // config.num_heads
         d = config.hidden_size
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = Dense(d, d)
+        self.k_proj = Dense(d, d)
+        self.v_proj = Dense(d, d)
+        self.out_proj = Dense(d, d)
 
     def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
@@ -52,8 +53,8 @@ class CLIPAttention(nn.Module):
 class CLIPMLP(nn.Module):
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
-        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size)
-        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size)
+        self.fc1 = Dense(config.hidden_size, config.intermediate_size)
+        self.fc2 = Dense(config.intermediate_size, config.hidden_size)
         self.act = _act(config.hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

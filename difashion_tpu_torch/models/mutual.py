@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from difashion_tpu_torch.config import MutualEncoderConfig
+from difashion_tpu_torch.nn.layers import Dense
 
 
 class MutualEncoder(nn.Module):
@@ -25,10 +26,10 @@ class MutualEncoder(nn.Module):
             self.category_embedding = nn.Embedding(config.cate_num,
                                                    config.cate_emb_size)
         self.mlp = nn.Sequential(
-            nn.Linear(flat, config.hid_dim),
+            Dense(flat, config.hid_dim),
             nn.LeakyReLU(0.01),
             nn.Dropout(config.dropout),
-            nn.Linear(config.hid_dim, flat),
+            Dense(config.hid_dim, flat),
             nn.Tanh(),
         )
 

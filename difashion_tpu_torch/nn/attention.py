@@ -37,7 +37,7 @@ from difashion_tpu_torch.nn.kernels.flash_attention import (
     flash_attention,
     flash_attention_ref,
 )
-from difashion_tpu_torch.nn.layers import FeedForward, GroupNorm
+from difashion_tpu_torch.nn.layers import Dense, FeedForward, GroupNorm
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
@@ -81,10 +81,10 @@ class CrossAttention(nn.Module):
         inner = heads * head_dim
         context_dim = context_dim or query_dim
         self.heads, self.head_dim = heads, head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Dropout(0.0)])
+        self.to_q = Dense(query_dim, inner, bias=False)
+        self.to_k = Dense(context_dim, inner, bias=False)
+        self.to_v = Dense(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Dense(inner, query_dim), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -130,8 +130,8 @@ class Transformer2D(nn.Module):
         self.use_linear_projection = use_linear_projection
         self.norm = GroupNorm(norm_num_groups, in_channels, eps=1e-6)
         if use_linear_projection:
-            self.proj_in = nn.Linear(in_channels, inner)
-            self.proj_out = nn.Linear(inner, in_channels)
+            self.proj_in = Dense(in_channels, inner)
+            self.proj_out = Dense(inner, in_channels)
         else:
             self.proj_in = nn.Conv2d(in_channels, inner, 1)
             self.proj_out = nn.Conv2d(inner, in_channels, 1)
@@ -165,14 +165,16 @@ class VAEAttention(nn.Module):
     def __init__(self, channels: int, norm_num_groups: int = 32):
         super().__init__()
         self.group_norm = GroupNorm(norm_num_groups, channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels), nn.Dropout(0.0)])
+        self.to_q = Dense(channels, channels)
+        self.to_k = Dense(channels, channels)
+        self.to_v = Dense(channels, channels)
+        self.to_out = nn.ModuleList([Dense(channels, channels), nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hgt, wid = x.shape
-        h = self.group_norm(x).reshape(b, c, hgt * wid).transpose(1, 2)
+        # [B, HW, C] made contiguous once for the three projections (the
+        # skinny-N kernel reads rows with unit stride along C)
+        h = self.group_norm(x).reshape(b, c, hgt * wid).transpose(1, 2).contiguous()
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
         out = sdpa(q[:, None], k[:, None], v[:, None])[:, 0]
         out = self.to_out[0](out)

@@ -12,8 +12,9 @@ path went through.
 
 `plain_versions()` is the one switch between the kernels and their plain
 PyTorch versions: while it is open, the kernels' callers (`nn.attention.sdpa`,
-`nn.layers.GroupNorm`) compute the plain versions on any device, so that a run
-can hold the kernel path against it. The wrappers themselves never read it.
+`nn.layers.GroupNorm`, `nn.layers.Dense`) compute the plain versions on any
+device, so that a run can hold the kernel path against it. The wrappers
+themselves never read it.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-           "group_norm_silu")
+           "group_norm_silu", "skinny_matmul")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,8 +49,9 @@ def reset_launches() -> None:
 
 @contextlib.contextmanager
 def plain_versions() -> Iterator[None]:
-    """Within this context every kernel's caller computes the kernel's plain
-    version instead, forward and backward. The flag is process-wide, not
+    """Within this context every kernel's caller (`sdpa`, `GroupNorm`,
+    `Dense`) computes the kernel's plain version instead, forward and
+    backward. The flag is process-wide, not
     per thread, because autograd runs a CUDA backward (and the recompute of a
     checkpointed block) on a thread of its own: run the backward of a plain
     forward inside the context too."""

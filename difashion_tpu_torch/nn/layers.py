@@ -3,6 +3,7 @@
 Counterparts of `difashion_tpu/nn/layers.py`. Module and parameter names are
 the diffusers ones, so the HF-layout state dicts that the JAX package exports
 load 1:1. Weights live in the module's dtype; GroupNorm statistics are fp32.
+Every linear layer of the port's models is a `Dense`.
 """
 from __future__ import annotations
 
@@ -20,6 +21,40 @@ from difashion_tpu_torch.nn.kernels.groupnorm import (
     group_norm_silu,
     group_norm_silu_ref,
 )
+from difashion_tpu_torch.nn.kernels.skinny_matmul import (
+    SkinnyMatmul,
+    compute_dtypes,
+    dense_route,
+    skinny_matmul,
+    skinny_matmul_ref,
+)
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` (same parameters, same keys) whose product goes through
+    the skinny-N matmul kernel where `dense_route` takes it: the JAX
+    package's `pallas_dense_dot` gate, on CUDA. There x and the weight are
+    cast to the compute dtype (autocast's, where it is on; the gradient flows
+    back through the cast to an fp32 master weight), multiplied by the kernel
+    (through `SkinnyMatmul` while autograd records), and the bias is added
+    after, as flax's Dense adds it. Outside the gate, and always on the CPU,
+    `F.linear`. While `kernels.plain_versions()` is open the gated products
+    take the kernel's plain version."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not dense_route(x, self.weight):
+            return F.linear(x, self.weight, self.bias)
+        x_dtype, w_dtype = compute_dtypes(x, self.weight)
+        x2 = x.to(x_dtype).reshape(-1, x.shape[-1])
+        w = self.weight.to(w_dtype)
+        plain = kernels.plain_active()
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+            y = SkinnyMatmul.apply(x2, w, plain)
+        else:
+            y = (skinny_matmul_ref if plain else skinny_matmul)(x2, w)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y.reshape(x.shape[:-1] + (w.shape[0],))
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -46,8 +81,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_features: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_features, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Dense(in_features, time_embed_dim)
+        self.linear_2 = Dense(time_embed_dim, time_embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(x)))
@@ -99,7 +134,7 @@ class ResnetBlock2D(nn.Module):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_channels, eps, act="silu")
         self.conv1 = conv2d(in_channels, out_channels)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+        self.time_emb_proj = (Dense(temb_channels, out_channels)
                               if temb_channels is not None else None)
         self.norm2 = GroupNorm(groups, out_channels, eps, act="silu")
         self.conv2 = conv2d(out_channels, out_channels)
@@ -144,7 +179,7 @@ class GEGLU(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Dense(dim_in, dim_out * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -157,7 +192,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
         self.net = nn.ModuleList([
-            GEGLU(dim, dim * mult), nn.Dropout(dropout), nn.Linear(dim * mult, dim),
+            GEGLU(dim, dim * mult), nn.Dropout(dropout), Dense(dim * mult, dim),
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

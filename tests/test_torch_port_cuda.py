@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash-attention forward, dQ, dK/dV; GroupNorm + SiLU)
-against their plain versions, on the card.
+"""The CUDA kernels (flash-attention forward, dQ, dK/dV; GroupNorm + SiLU;
+the skinny-N matmul) against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with the CUDA toolkit, is
 marked `cuda`, and skips elsewhere. The module imports torch only (no JAX), so
@@ -23,6 +23,11 @@ from difashion_tpu_torch.nn.kernels.flash_attention import (
     flash_attention_ref,
 )
 from difashion_tpu_torch.nn.kernels.groupnorm import group_norm_silu, group_norm_silu_ref
+from difashion_tpu_torch.nn.kernels.skinny_matmul import (
+    SkinnyMatmul,
+    skinny_matmul,
+    skinny_matmul_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -171,7 +176,8 @@ def test_sdpa_autograd_routes_through_the_kernels(dev):
     out = sdpa(q, k, v)
     out.backward(do)
     assert dict(kernels.LAUNCHES) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
-                                      "flash_attention_dkv": 1, "group_norm_silu": 0}
+                                      "flash_attention_dkv": 1, "group_norm_silu": 0,
+                                      "skinny_matmul": 0}
     grads = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -318,3 +324,107 @@ def test_group_norm_module_routes_through_the_kernel(dev):
     # the order of the CUDA backward's sums
     for got, t in zip(grads, (x, gn.weight, gn.bias)):
         assert got.dtype == t.dtype and _rel(got, t.grad) <= 1e-3
+
+
+# ---- skinny-N matmul ---------------------------------------------------------------
+
+MM_SHAPES = [  # (M, K, N): the route's shapes, both tile widths, ragged edges
+    (8192, 320, 320),
+    (4096, 640, 640),
+    (2048, 1280, 1280),
+    (4096, 1280, 320),         # net_2 at C = 320
+    (2048, 640, 2560),         # dx of net_2 at C = 640
+    (1000, 96, 200),           # M, N and the last K chunk ragged
+    (130, 40, 24),
+]
+
+
+def _mm_inputs(m, k, n, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = (torch.randn(n, k, generator=g, device=dev) / k ** 0.5).to(dtype)
+    return x, w
+
+
+def _mm_close(got, want, dtype):
+    """Both sum in fp32 and round once: at most one unit in the last place
+    apart (2^-7 of the value in bf16, 2^-10 in fp16), plus the fp32 sums'
+    order near zero."""
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= rel * want.float().abs() + 1e-3).all())
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_skinny_matmul_kernel_matches_plain(dev, m, k, n, dtype):
+    x, w = _mm_inputs(m, k, n, dtype, dev)
+    kernels.reset_launches()
+    o = skinny_matmul(x, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["skinny_matmul"] == 1
+    assert o.dtype == dtype and o.shape == (m, n) and o.is_contiguous()
+    assert _mm_close(o, skinny_matmul_ref(x, w), dtype)
+    # a row stride wider than K (a view into a wider tensor) reads in place
+    wide = torch.zeros(m, k + 8, dtype=dtype, device=dev)
+    wide[:, :k] = x
+    assert torch.equal(skinny_matmul(wide[:, :k], w), o)
+
+
+def test_skinny_matmul_wrapper_rejects(dev):
+    x, w = _mm_inputs(512, 64, 64, torch.bfloat16, dev)
+    with pytest.raises(TypeError):
+        skinny_matmul(x.float(), w.float())
+    with pytest.raises(ValueError):
+        skinny_matmul(x[:, :60], w[:, :60])                  # K % 8
+    with pytest.raises(ValueError):
+        skinny_matmul(x.t(), w)                              # not unit stride along K
+    with pytest.raises(ValueError):
+        skinny_matmul(x, w.cpu())
+
+
+def test_dense_routes_through_the_kernel(dev):
+    from difashion_tpu_torch.nn.layers import Dense
+
+    dense = Dense(320, 640).to(dev)
+    with torch.no_grad():
+        dense.bias.normal_()
+    x = torch.randn(2, 2048, 320, device=dev).requires_grad_()
+    dy = torch.randn(2, 2048, 640, device=dev).bfloat16()
+    kernels.reset_launches()
+    with torch.inference_mode():
+        dense(x.detach())                                    # fp32: F.linear
+    assert kernels.LAUNCHES["skinny_matmul"] == 0
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = dense(x)                                          # fp32 master weight, bf16 compute
+    y.backward(dy)
+    assert kernels.LAUNCHES["skinny_matmul"] == 2            # forward and dx
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 2048, 640)
+    grads = [t.grad.clone() for t in (x, dense.weight, dense.bias)]
+    for t in (x, dense.weight, dense.bias):
+        t.grad = None
+    with kernels.plain_versions(), torch.autocast("cuda", dtype=torch.bfloat16):
+        y_plain = dense(x)
+        y_plain.backward(dy)
+    assert kernels.LAUNCHES["skinny_matmul"] == 2
+    assert _rel(y, y_plain) <= 1e-2
+    for got, t in zip(grads, (x, dense.weight, dense.bias)):
+        assert got.dtype == t.dtype == torch.float32 and _rel(got, t.grad) <= 1e-2
+    # M = 1024 is outside the gate: F.linear
+    with torch.autocast("cuda", dtype=torch.bfloat16), torch.no_grad():
+        dense(x[:, :512])
+    assert kernels.LAUNCHES["skinny_matmul"] == 2
+
+
+def test_skinny_matmul_autograd_matches_plain(dev):
+    x, w = _mm_inputs(4096, 320, 640, torch.bfloat16, dev, seed=3)
+    x.requires_grad_()
+    w.requires_grad_()
+    g = torch.randn(4096, 640, device=dev).bfloat16()
+    kernels.reset_launches()
+    SkinnyMatmul.apply(x, w, False).backward(g)
+    assert kernels.LAUNCHES["skinny_matmul"] == 2
+    dx, dw = x.grad.clone(), w.grad.clone()
+    x.grad = w.grad = None
+    SkinnyMatmul.apply(x, w, True).backward(g)
+    assert _mm_close(dx, x.grad, torch.bfloat16) and torch.equal(dw, w.grad)

@@ -28,10 +28,12 @@ def _sources():
 
 def test_port_imports_no_jax_in_a_fresh_interpreter():
     mods = _modules()
-    for mod in ("engine.generate", "engine.train", "engine.optim8bit",
-                "nn.kernels.flash_attention", "nn.kernels.groupnorm", "data.datasets",
-                "data.prompts", "data.tokenizer", "data.preprocessing", "data.precompute",
-                "cli.extract_features", "__main__"):
+    for mod in ("engine.generate", "engine.train", "engine.optim8bit", "engine.pipeline",
+                "nn.kernels.flash_attention", "nn.kernels.groupnorm",
+                "nn.kernels.skinny_matmul", "diffusion.ddim", "diffusion.dpmpp",
+                "checkpoint", "data.datasets", "data.prompts", "data.tokenizer",
+                "data.preprocessing", "data.precompute", "cli.common", "cli.extract_features",
+                "cli.generate", "cli.serve", "__main__"):
         assert f"difashion_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"

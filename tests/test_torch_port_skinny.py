@@ -1,0 +1,228 @@
+"""The skinny-N matmul kernel's plain version, its autograd Function and the
+Dense layers' gate, which the port runs on the CPU, against the JAX package's
+`tools/pallas_skinny_matmul.py`: `matmul_2d` with the Pallas kernel in
+interpret mode, `jax.grad` through its `_matmul` custom VJP, and
+`pallas_dense_dot`'s gate over every Dense product of the sd2_base towers. The
+CUDA kernel itself is held against the same plain version on the card
+(tests/test_torch_port_cuda.py, chip_smoke.py).
+
+Tolerances: fp32 1e-5 (sums of at most 320 products in another order). bf16:
+both sides sum in fp32 and round once, so they differ by at most one unit in
+the last place where the two sums straddle a rounding boundary (2^-7 of the
+value)."""
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from difashion_tpu_torch.config import ModelConfig
+from difashion_tpu_torch.models.difashion import DiFashion
+from difashion_tpu_torch.nn import kernels, layers
+from difashion_tpu_torch.nn.kernels import skinny_matmul as sm
+from difashion_tpu_torch.nn.layers import Dense
+
+from test_torch_port_models import one_torch_thread  # noqa: F401  (autouse fixture)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL32 = dict(rtol=1e-5, atol=1e-5)
+TOL_BF16 = dict(rtol=2.0 ** -7, atol=1e-6)
+
+
+def _load_jax_module():
+    """tools/ is no package: load the Pallas module by its path."""
+    spec = importlib.util.spec_from_file_location(
+        "pallas_skinny_matmul", os.path.join(REPO, "tools", "pallas_skinny_matmul.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jmm():
+    return _load_jax_module()
+
+
+def _xw(m, k, n, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(k, n) / np.sqrt(k)).astype(np.float32)   # JAX layout [K, N]
+    return x, w
+
+
+SHAPES = [(512, 64, 32), (1000, 96, 64), (2048, 320, 320), (2560, 128, 160)]
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_matches_jax_kernel(jmm, m, k, n, dtype):
+    x, w = _xw(m, k, n)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jmm.matmul_2d(jnp.asarray(x, jd), jnp.asarray(w, jd), interpret=True)
+                      .astype(jnp.float32))
+    tx, tw = torch.from_numpy(x).to(td), torch.from_numpy(w.T.copy()).to(td)
+    got = sm.skinny_matmul_ref(tx, tw)
+    assert got.dtype == td and got.shape == (m, n)
+    # a CPU tensor takes the plain version
+    assert torch.equal(sm.skinny_matmul(tx, tw), got)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **(TOL32 if dtype == "float32" else TOL_BF16))
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 64, 32), (1000, 96, 64)])
+def test_gradients_match_jax_custom_vjp(jmm, m, k, n):
+    x, w = _xw(m, k, n, seed=1)
+    g = np.random.RandomState(2).randn(m, n).astype(np.float32)   # not all ones
+    loss = lambda x, w: jnp.sum(jmm.matmul_2d(x, w, interpret=True) * g)
+    jdx, jdw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w.T.copy()).requires_grad_()
+    out = sm.SkinnyMatmul.apply(tx, tw, True)
+    np.testing.assert_allclose(out.detach().numpy(), x @ w, **TOL32)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **TOL32)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw).T, rtol=1e-5, atol=1e-4)
+    # dx alone (a frozen weight)
+    tx.grad = None
+    sm.SkinnyMatmul.apply(tx, tw.detach(), False).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **TOL32)
+
+
+def _dense_products(cfg, batch):
+    """{(rows, K, N)} of every Dense call of the sd2_base towers at `batch`
+    rows: a UNet forward, a VAE decode and encode, the text tower and the
+    MutualEncoder, run on the meta device (shapes only)."""
+    with torch.device("meta"):
+        model = DiFashion(cfg)
+    seen = set()
+
+    def record(mod, args):
+        x = args[0]
+        seen.add((int(np.prod(x.shape[:-1])), mod.in_features, mod.out_features))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, Dense)]
+    u, v = cfg.unet, cfg.vae
+    meta = lambda *shape: torch.empty(*shape, device="meta")
+    s = u.sample_size
+    with torch.no_grad(), kernels.plain_versions():
+        model.unet(meta(batch, u.in_channels, s, s),
+                   torch.zeros(batch, dtype=torch.long, device="meta"),
+                   meta(batch, 77, u.cross_attention_dim))
+        model.vae.decode(meta(batch, v.latent_channels, s, s))
+        model.vae.encode(meta(batch, v.in_channels, v.sample_size, v.sample_size))
+        model.text_encoder(torch.zeros(batch, 77, dtype=torch.long, device="meta"))
+        model.fashion_encoder(meta(batch, v.latent_channels, s, s))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def test_dense_route_matches_jax_gate(jmm, monkeypatch):
+    """`gate` against `pallas_dense_dot` itself (traced abstractly, on a TPU
+    as far as the gate can tell) at every Dense product of the sd2_base towers
+    at the batches the paths use, in bf16."""
+    monkeypatch.setattr(jmm, "_on_tpu", lambda: True)
+    calls = []
+
+    def record(x, w, **_):
+        calls.append(x.shape)
+        return jnp.zeros((x.shape[0], w.shape[1]), x.dtype)
+
+    monkeypatch.setattr(jmm, "matmul_2d", record)
+
+    def jax_routes(rows, k, n):
+        calls.clear()
+        jax.eval_shape(lambda a, b: jmm.pallas_dense_dot(a, b, (((1,), (0,)), ((), ()))),
+                       jax.ShapeDtypeStruct((rows, k), jnp.bfloat16),
+                       jax.ShapeDtypeStruct((k, n), jnp.bfloat16))
+        return bool(calls)
+
+    cfg = ModelConfig.sd2_base()
+    products = set()
+    for batch in (1, 4, 8, 16, 64):
+        products |= _dense_products(cfg, batch)
+    routed = {(m, k, n) for m, k, n in products
+              if sm.gate(m, n, k, torch.bfloat16, torch.bfloat16)}
+    assert routed == {p for p in products if jax_routes(*p)}
+    # what the gate takes: the 64x64 and 32x32 levels, the 16x16 level from 8
+    # rows, the mid level at 64, net_2 up to C = 640, the VAE mid attention
+    assert (16 * 4096, 320, 320) in routed and (16 * 1024, 2560, 640) in routed
+    assert (8 * 256, 1280, 1280) in routed and (64 * 64, 1280, 1280) in routed
+    assert (16 * 64, 1280, 1280) not in routed            # M = 1024
+    assert (16 * 4096, 1280, 320) in routed               # net_2 at C = 320
+    assert (16 * 256, 5120, 1280) not in routed           # net_2 at C = 1280: 13 MB
+    assert (16 * 4096, 320, 2560) not in routed           # GEGLU: N = 8C
+    assert (16 * 77, 1024, 320) not in routed             # cross-attention k/v
+    assert (4 * 4096, 512, 512) in routed                 # VAE mid attention
+
+
+def test_dense_route_stays_off_the_cpu_and_fp32():
+    x = torch.zeros(4096, 320)
+    w = torch.zeros(320, 320)
+    assert not sm.dense_route(x, w)                       # the CPU: F.linear
+    assert sm.gate(4096, 320, 320, torch.bfloat16, torch.bfloat16)
+    assert not sm.gate(4096, 320, 320, torch.float32, torch.float32)   # no fp32 kernel
+    assert not sm.gate(4096, 320, 320, torch.bfloat16, torch.float32)  # JAX's dtype rule
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        assert sm.compute_dtypes(x, w) == (torch.bfloat16, torch.bfloat16)
+    assert sm.compute_dtypes(x.bfloat16(), w) == (torch.bfloat16, torch.float32)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("autocast", [False, True])
+def test_dense_kernel_route_matches_linear(monkeypatch, bias, autocast):
+    """Dense's route with the gate forced open on the CPU (where the kernel's
+    wrapper computes the plain version): the cast, the reshape, the bias and
+    the gradients, against F.linear."""
+    torch.manual_seed(0)
+    dense = Dense(96, 64, bias=bias)
+    if bias:
+        torch.nn.init.normal_(dense.bias)
+    x = torch.randn(2, 300, 96, requires_grad=True)
+    g = torch.randn(2, 300, 64)
+
+    def run(route):
+        monkeypatch.setattr(layers, "dense_route", lambda *_: route)
+        x.grad = dense.weight.grad = None
+        if bias:
+            dense.bias.grad = None
+        with torch.autocast("cpu", dtype=torch.bfloat16, enabled=autocast):
+            y = dense(x)
+        y.backward(g.to(y.dtype))
+        grads = [t.grad.clone() for t in (x, dense.weight, dense.bias) if t is not None]
+        return y.detach(), grads
+
+    got, got_grads = run(True)
+    want, want_grads = run(False)
+    assert got.dtype == want.dtype == (torch.bfloat16 if autocast else torch.float32)
+    assert got.shape == (2, 300, 64)
+    got, want = got.float().numpy(), want.float().numpy()
+    if autocast:
+        # F.linear adds the bias before its one rounding to bf16, the route
+        # after it (as flax's Dense does): half a unit of the product's
+        # magnitude more, and a unit of the result's
+        prod = np.abs(x.detach().bfloat16().float().numpy()
+                      @ dense.weight.detach().bfloat16().float().numpy().T)
+        assert (np.abs(got - want) <= 2.0 ** -8 * prod + 2.0 ** -7 * np.abs(want) + 1e-6).all()
+    else:
+        np.testing.assert_allclose(got, want, **TOL32)
+    for a, b in zip(got_grads, want_grads):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                   rtol=2e-2 if autocast else 1e-5,
+                                   atol=2e-2 if autocast else 1e-4)
+
+
+def test_every_linear_is_dense():
+    with torch.device("meta"):
+        model = DiFashion(ModelConfig.tiny())
+    linears = [m for m in model.modules() if isinstance(m, torch.nn.Linear)]
+    assert linears and all(type(m) is Dense for m in linears)
+    # the keys stay nn.Linear's
+    assert set(dict(linears[0].named_parameters())) <= {"weight", "bias"}
