@@ -30,8 +30,13 @@ line each:
      an fp64 product at every distinct product that the Dense gate routes to
      it on the sampler's UNet (batch 16 and the service's 64), the train
      step's (batch 8, forward and dx), the VAE decode (4 and 16 images) and
-     encode (64 and 8), in bf16 and fp16, with its time, the plain
-     version's, the library's (torch.matmul, a yardstick only) and the bound;
+     encode (64 and 8), in bf16 and fp16, with a bias and without one, with
+     the weight as [N, K] and as [K, N]; then, in the layout the path uses
+     (dx reads the stored weight as [K, N]), its tile width, its time with
+     and without a bias, TFLOP/s, the bound's share, the plain version's
+     time, the library's (torch.matmul, and F.linear with the bias;
+     yardsticks only) and the bound; and the wrapper's host microseconds per
+     call beside F.linear's and torch.matmul's;
   4. reference: the whole generation path at the tiny config on the card
      (fp16) against the port's CPU fp32 run of the same weights and inputs,
      with each scheduler: PNDM, DDIM (eta 0, and eta 0.5 with the same step
@@ -74,9 +79,11 @@ line each:
  11. train: the sd2_base recipe through `engine/train.py::build_train_step`
      (fp32 master weights, bf16 autocast, AdamW, EMA, min-SNR, batch 2 x 4),
      2 warm-up and 10 timed steps, with the launches of every step (the
-     skinny-N kernel forward and for dx); then one step with gradient
-     checkpointing, one with 8-bit AdamW and one on an image batch (the VAE
-     encoder inside the step);
+     skinny-N kernel forward and for dx); the Dense route's cost: steps with
+     the route as shipped and with every Dense.forward bound to
+     nn.Linear.forward (here only, as a yardstick), in turns; then one step
+     with gradient checkpointing, one with 8-bit AdamW and one on an image
+     batch (the VAE encoder inside the step);
  12. profile_train: one training step by CUDA kernel and its split into
      forward, backward and optimizer/EMA.
 
@@ -249,8 +256,9 @@ def phase_build():
     t0 = time.perf_counter()
     logs = kernels.build_all()
     seconds = time.perf_counter() - t0
+    # registers, spills and warnings (a setmaxnreg the compiler ignored)
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "warning" in ln]
              for name, log in logs.items()}
     emit({"phase": "build", "kernels": list(logs), "seconds": seconds, "ptxas": ptxas})
 
@@ -656,10 +664,11 @@ MM_TIMED = ("sampler_unet", "serve_unet", "train_unet", "train_unet_dx", "vae_de
 
 
 def dense_sites(cfg):
-    """{path: [(M, K, N) of each gated Dense call]} for DENSE_PATHS, from
-    forwards of the sd2_base towers on the meta device (shapes only) and the
-    bf16 gate of `nn/kernels/skinny_matmul.py`; "<path>_dx" for the train
-    UNet's backward, whose dx = g . w is the product (M, N, K)."""
+    """{path: [(M, K, N, bias) of each gated Dense call]} for DENSE_PATHS,
+    from forwards of the sd2_base towers on the meta device (shapes only) and
+    the bf16 gate of `nn/kernels/skinny_matmul.py`; "<path>_dx" for the
+    train UNet's backward, whose dx = g . w is the product (M, N, K) with the
+    weight read as [K, N] and no bias."""
     import torch
 
     from difashion_tpu_torch.models.difashion import DiFashion
@@ -674,7 +683,7 @@ def dense_sites(cfg):
     def record(mod, args):
         m = math.prod(args[0].shape[:-1])
         if gate(m, mod.out_features, mod.in_features, torch.bfloat16, torch.bfloat16):
-            calls[path].append((m, mod.in_features, mod.out_features))
+            calls[path].append((m, mod.in_features, mod.out_features, mod.bias is not None))
 
     hooks = [m.register_forward_pre_hook(record) for m in model.modules()
              if isinstance(m, Dense)]
@@ -693,73 +702,173 @@ def dense_sites(cfg):
                 model.vae.encode(meta(b, v.in_channels, v.sample_size, v.sample_size))
     for h in hooks:
         h.remove()
-    calls["train_unet_dx"] = [(m, n, k) for m, k, n in calls["train_unet"]]
+    calls["train_unet_dx"] = [(m, n, k, False) for m, k, n, _ in calls["train_unet"]]
     return calls
 
 
-def matmul_bound(m, k, n):
-    """(bound ms, 'operations' or 'bytes', ops, bytes): 2MKN operations; x, w
-    read once and o written once in 16 bits."""
-    ops = 2.0 * m * k * n
-    nbytes = 2.0 * (m * k + k * n + m * n)
+def matmul_bound(m, k, n, bias=False):
+    """(bound ms, 'operations' or 'bytes', ops, bytes): 2MKN operations (and
+    MN adds for a bias); x, w (and the bias) read once and o written once in
+    16 bits."""
+    ops = 2.0 * m * k * n + (m * n if bias else 0)
+    nbytes = 2.0 * (m * k + k * n + m * n + (n if bias else 0))
     t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
-def phase_kernel_mm(paths):
-    """The skinny-N kernel at every distinct routed product of MM_TIMED, in
-    bf16 and fp16: against its plain version (the largest difference) and
-    both against an fp64 product of the same inputs; in bf16 its time, the
-    plain version's, torch.matmul's and the bound."""
+def host_us_per_call(fn, calls=200):
+    """Host microseconds to issue one call of `fn` while the card is busy
+    (a sleep kernel ahead of them), so that no call waits for the device."""
     import torch
 
-    from difashion_tpu_torch.nn.kernels.skinny_matmul import skinny_matmul, skinny_matmul_ref
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_kernel_mm(paths):
+    """The skinny-N kernel at every distinct routed product of MM_TIMED (the
+    train step's dx products with the weight read as [K, N], as the backward
+    reads it): in bf16 and fp16, with a bias and without one, in both layouts
+    of w (the other one a transposed copy of the same weight), against its
+    plain version (the largest difference) and both against an fp64 product
+    of the same inputs. In bf16, in the path's layout: the tile width, the
+    time with and without a bias, the plain version's, torch.matmul's and
+    F.linear's (with the bias; yardsticks only), TFLOP/s and the bound's
+    share. Then the wrapper's host microseconds per call beside F.linear's."""
+    import torch
+    import torch.nn.functional as F
+
+    from difashion_tpu_torch.nn.kernels.skinny_matmul import (
+        skinny_matmul,
+        skinny_matmul_ref,
+        tile_n,
+    )
 
     shapes = {}
     for path in MM_TIMED:
-        for mkn in paths[path]:
-            per = shapes.setdefault(mkn, {})
-            per[path] = per.get(path, 0) + 1
+        for m, k, n, bias in paths[path]:
+            per = shapes.setdefault((m, k, n, path.endswith("_dx")),
+                                    {"calls": {}, "bias_calls": {}})
+            per["calls"][path] = per["calls"].get(path, 0) + 1
+            per["bias_calls"][path] = per["bias_calls"].get(path, 0) + bias
     gen = torch.Generator(device="cuda").manual_seed(6)
     results = []
-    for (m, k, n), calls in shapes.items():
+    for (m, k, n, w_kn), per in shapes.items():
+        row = {"phase": "kernel_mm", "mkn": [m, k, n], "w_kn": w_kn, **per,
+               "tile_n": tile_n(n, w_kn), "checks": {}}
+        ok = True
         for dtype in (torch.bfloat16, torch.float16):
             x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-            w = (torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5).to(dtype)
-            o = skinny_matmul(x, w)
-            torch.cuda.synchronize()
-            plain = skinny_matmul_ref(x, w)
-            ref = x.double() @ w.double().t()
-            kernel_err = (o.double() - ref).abs().max().item()
-            plain_err = (plain.double() - ref).abs().max().item()
-            max_err = (o.float() - plain.float()).abs().max().item()
-            del ref
-            # both round one fp32 sum per element to 16 bits: each is within
-            # half a unit in the last place (plus the fp32 sum's error) of the
-            # fp64 product, so the kernel may be no farther from it than
-            # VS_PLAIN times the plain version's largest distance
-            ok = bool(torch.isfinite(o).all()) and kernel_err <= VS_PLAIN * plain_err
-            row = {"phase": "kernel_mm", "mkn": [m, k, n],
-                   "dtype": str(dtype).replace("torch.", ""), "calls": calls,
-                   "max_abs_err": max_err, "kernel_vs_fp64": kernel_err,
-                   "plain_vs_fp64": plain_err}
+            w = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5).to(dtype)
+            b = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            w_nk = w.t().contiguous()
+            for bias in (None, b):
+                plain = skinny_matmul_ref(x, w, bias, w_kn=True)
+                ref = x.double() @ w.double()
+                if bias is not None:
+                    ref += bias.double()
+                plain_err = (plain.double() - ref).abs().max().item()
+                for kn in (False, True):
+                    o = skinny_matmul(x, w if kn else w_nk, bias, w_kn=kn)
+                    torch.cuda.synchronize()
+                    kernel_err = (o.double() - ref).abs().max().item()
+                    max_err = (o.float() - plain.float()).abs().max().item()
+                    # both round one fp32 sum per element to 16 bits (and the
+                    # bias sum once more): each is within half a unit in the
+                    # last place (plus the fp32 sum's error) of the fp64
+                    # product, so the kernel may be no farther from it than
+                    # VS_PLAIN times the plain version's largest distance
+                    good = bool(torch.isfinite(o).all()) and kernel_err <= VS_PLAIN * plain_err
+                    ok &= good
+                    key = (f"{str(dtype)[6:]}_{'kn' if kn else 'nk'}"
+                           f"_{'bias' if bias is not None else 'no_bias'}")
+                    row["checks"][key] = [max_err, kernel_err, plain_err]
+                    if dtype == torch.bfloat16:
+                        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), max_err)
+                    del o
+                del plain, ref
             if dtype == torch.bfloat16:
+                wl = w if w_kn else w_nk
+                wt = w if w_kn else w_nk.t()
                 bound_ms, bound_by, ops, nbytes = matmul_bound(m, k, n)
-                row.update({"ms": device_ms(lambda: skinny_matmul(x, w)),
-                            "plain_ms": device_ms(lambda: skinny_matmul_ref(x, w), reps=10,
-                                                  warmup=1),
-                            "library_ms": device_ms(lambda: torch.matmul(x, w.t())),
-                            "bound_ms": bound_ms, "bound_by": bound_by})
+                row.update({
+                    "ms": device_ms(lambda: skinny_matmul(x, wl, w_kn=w_kn)),
+                    "ms_bias": None if w_kn else device_ms(lambda: skinny_matmul(x, wl, b)),
+                    "plain_ms": device_ms(lambda: skinny_matmul_ref(x, wl, w_kn=w_kn),
+                                          reps=10, warmup=1),
+                    "matmul_ms": device_ms(lambda: torch.matmul(x, wt)),
+                    "linear_ms": None if w_kn else device_ms(lambda: F.linear(x, wl, b)),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_bias_ms": matmul_bound(m, k, n, bias=True)[0]})
                 row["tflops"] = ops / row["ms"] / 1e9
-            row["ok"] = ok
-            emit(row)
-            results.append(row)
-            del x, w, o, plain
+                row["bound_share"] = bound_ms / row["ms"]
+            del x, w, w_nk, b
             torch.cuda.empty_cache()
-    bad = [(r["mkn"], r["dtype"]) for r in results if not r["ok"]]
+        row["ok"] = ok
+        emit(row)
+        results.append(row)
+    # the wrapper's host cost at a biased product of the sampler UNet, in
+    # layers: the C entry alone (three tensor maps encoded and the launch,
+    # through ctypes), `launch` (+ the output's allocation and the stream),
+    # `skinny_matmul` (+ the checks), a Dense module (+ the route, the casts);
+    # beside F.linear and an nn.Linear module on the same inputs
+    from difashion_tpu_torch.nn.kernels import skinny_matmul as sm
+    from difashion_tpu_torch.nn.layers import Dense
+
+    x = torch.randn(4096, 1280, device="cuda", dtype=torch.bfloat16)
+    dense = Dense(1280, 1280).to("cuda", torch.bfloat16)
+    w, b = dense.weight.detach(), dense.bias.detach()
+    o = torch.empty(4096, 1280, device="cuda", dtype=torch.bfloat16)
+    bn = tile_n(1280)
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(), 4096, 1280, 1280, 1280, 0,
+            0, bn)
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.inference_mode():
+        host = {"mkn": [4096, 1280, 1280],
+                "c_entry_us": host_us_per_call(lambda: sm._fn()(*args, stream)),
+                "launch_us": host_us_per_call(lambda: sm.launch(x, w, b, False, bn)),
+                "skinny_matmul_us": host_us_per_call(lambda: skinny_matmul(x, w, b)),
+                "dense_module_us": host_us_per_call(lambda: dense(x)),
+                "linear_us": host_us_per_call(lambda: F.linear(x, w, b)),
+                "linear_module_us": host_us_per_call(
+                    lambda: torch.nn.Linear.forward(dense, x)),
+                "matmul_us": host_us_per_call(lambda: torch.matmul(x, w.t()))}
+    emit({"phase": "kernel_mm", "host_per_call": host})
+    del x, w, b, o, dense
+    bad = [(r["mkn"], r["w_kn"]) for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"skinny_matmul disagrees with its plain version at {bad}")
-    return results
+    return results, host
+
+
+def mm_path_totals(results, paths):
+    """Per path: the skinny kernel's bf16 numbers summed over the path's
+    calls, each call with its bias or without: ms, the bound, the plain
+    version, torch.matmul (no bias), and the library (torch.matmul for the
+    calls without a bias, F.linear for those with one)."""
+    out = {}
+    for path in paths:
+        tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "matmul_ms", "library_ms"), 0.0)
+        tot["calls"] = 0
+        for r in results:
+            calls = r["calls"].get(path, 0)
+            biased = r["bias_calls"].get(path, 0)
+            plain_calls = calls - biased
+            tot["ms"] += r["ms"] * plain_calls + (r["ms_bias"] or 0.0) * biased
+            tot["plain_ms"] += r["plain_ms"] * calls
+            tot["bound_ms"] += r["bound_ms"] * plain_calls + r["bound_bias_ms"] * biased
+            tot["matmul_ms"] += r["matmul_ms"] * calls
+            tot["library_ms"] += r["matmul_ms"] * plain_calls + (r["linear_ms"] or 0.0) * biased
+            tot["calls"] += calls
+        out[path] = tot
+    return out
 
 
 def phase_unet(model, mm_paths):
@@ -1469,6 +1578,53 @@ def train_inputs(model, tc, seed):
 
 
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+DENSE_COST_ROUNDS, DENSE_COST_STEPS = 4, 3
+
+
+def dense_route_cost(step, state, batches, null_latent, null_text, gen, want_mm):
+    """Train steps with the Dense route as shipped and with every
+    `Dense.forward` bound to `nn.Linear.forward` (F.linear: cuBLAS with the
+    bias fused, no kernel, no autograd Function), a yardstick bound here
+    only, in turns (route, linear, route, linear): one untimed step after
+    each switch, then DENSE_COST_STEPS steps each between a synchronize and
+    the next, timed by CUDA events and by the host clock. Returns the state
+    and {variant: per-step ms lists and medians}, with the difference."""
+    import torch
+
+    from difashion_tpu_torch.nn import kernels
+    from difashion_tpu_torch.nn.layers import Dense
+
+    shipped = Dense.forward
+    out = {v: {"events_ms": [], "host_ms": []} for v in ("route", "linear")}
+    launches = {}
+    try:
+        for _ in range(DENSE_COST_ROUNDS):
+            for variant in ("route", "linear"):
+                Dense.forward = shipped if variant == "route" else torch.nn.Linear.forward
+                state, _ = step(state, batches[0], null_latent, null_text, gen)
+                for i in range(DENSE_COST_STEPS):
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    torch.cuda.synchronize()
+                    kernels.reset_launches()
+                    t0 = time.perf_counter()
+                    ev[0].record()
+                    state, _ = step(state, batches[1 + i], null_latent, null_text, gen)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    out[variant]["host_ms"].append((time.perf_counter() - t0) * 1e3)
+                    out[variant]["events_ms"].append(ev[0].elapsed_time(ev[1]))
+                    launches[variant] = kernels.LAUNCHES["skinny_matmul"]
+    finally:
+        Dense.forward = shipped
+    for v in out.values():
+        v["median_host_ms"] = statistics.median(v["host_ms"])
+        v["median_events_ms"] = statistics.median(v["events_ms"])
+    out["route_minus_linear_host_ms"] = (out["route"]["median_host_ms"]
+                                         - out["linear"]["median_host_ms"])
+    out["skinny_launches_per_step"] = launches
+    if launches != {"route": want_mm, "linear": 0}:
+        raise AssertionError(f"dense route cost: skinny launches {launches}")
+    return state, out
 
 
 def phase_train(model, mm_paths):
@@ -1542,6 +1698,10 @@ def phase_train(model, mm_paths):
         raise AssertionError(f"train: bad steps {bad}, params changed {params_changed}, "
                              f"EMA fraction {ema_fraction} vs {1 - decay}")
     train_launches = rows[-1][1]
+    state, cost = dense_route_cost(step, state, batches, null_latent, null_text, gen,
+                                   want["skinny_matmul"])
+    emit({"phase": "train", "variant": "dense_route_cost", "config": "sd2_base",
+          "recipe": "TrainConfig()", **cost})
     del state, rows
     # checkpointing recomputes every ResnetBlock2D and Transformer2D in the
     # backward (every gated Dense is inside a Transformer2D); the image batch
@@ -1681,12 +1841,13 @@ def gn_entry(gn_results, launches, train_launches, precompute_launches):
             "precompute_launches": precompute_launches["group_norm_silu"]}
 
 
-def mm_entry(mm_results, launches, train_launches, precompute_launches, serve_launches):
+def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
+             serve_launches):
     """The skinny-N kernel's entry of the kernels line: numbers per sampler
-    UNet forward (batch 16, bf16) and per call of every path, launches the
-    main path's, and those of a serve request, a train step and the
-    precompute."""
-    totals = path_totals(mm_results, MM_TIMED)
+    UNet forward (batch 16, bf16, each product with its bias or without) and
+    per call of every path, launches the main path's, and those of a serve
+    request, a train step and the precompute."""
+    totals = mm_path_totals(mm_results, MM_TIMED)
     main = totals["sampler_unet"]
     return {"name": "skinny_matmul", "route": "cuda",
             "source": "difashion_tpu_torch/csrc/skinny_matmul.cu",
@@ -1695,16 +1856,19 @@ def mm_entry(mm_results, launches, train_launches, precompute_launches, serve_la
             "max_abs_err": max(r["max_abs_err"] for r in mm_results),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": "operations", "library_ms": main["library_ms"],
-            "library": "torch.matmul(x, w.t()) in the input dtype",
+            "library": "torch.matmul(x, w.t()) for the products without a bias, "
+                       "F.linear(x, w, b) for those with one, in the input dtype",
+            "matmul_ms": main["matmul_ms"],
             "per": f"one sampler UNet forward ({main['calls']} calls, bf16)",
-            "per_path": totals,
+            "per_path": totals, "host_per_call": mm_host,
+            "tile_n": sorted({(r["mkn"][2], r["w_kn"], r["tile_n"]) for r in mm_results}),
             "serve_request_launches": {k: v["skinny_matmul"] for k, v in serve_launches.items()},
             "train_step_launches": train_launches["skinny_matmul"],
             "precompute_launches": precompute_launches["skinny_matmul"]}
 
 
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
-                 precompute_launches, mm_results, serve_launches):
+                 precompute_launches, mm_results, mm_host, serve_launches):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
@@ -1728,7 +1892,8 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                      replaces=pallas + "191", library=library,
                      main_path_launches=launches["flash_attention_dkv"]),
         gn_entry(gn_results, launches, train_launches, precompute_launches),
-        mm_entry(mm_results, launches, train_launches, precompute_launches, serve_launches),
+        mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
+                 serve_launches),
     ]}
 
 
@@ -1752,7 +1917,7 @@ def main():
     results = phase_kernel(sites)
     gn_results = phase_kernel_gn(groupnorm_sites(cfg))
     mm_paths = dense_sites(cfg)
-    mm_results = phase_kernel_mm(mm_paths)
+    mm_results, mm_host = phase_kernel_mm(mm_paths)
     phase_reference()
     model = create_difashion(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     phase_unet(model, mm_paths)
@@ -1773,7 +1938,7 @@ def main():
     train_launches = phase_train(model, mm_paths)
     phase_profile_train(model)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
-                      precompute_launches, mm_results, serve_launches))
+                      precompute_launches, mm_results, mm_host, serve_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

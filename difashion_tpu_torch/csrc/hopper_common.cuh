@@ -1,0 +1,328 @@
+// Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels:
+// the skinny-N matmul now, the flash-attention forward's redesign next.
+//
+//   - TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled,
+//     reached from the runtime (cudaGetDriverEntryPoint*), so that the
+//     libraries link nothing but the runtime;
+//   - the copies: cp.async.bulk.tensor loads into shared memory, completed on
+//     an mbarrier, and stores from shared memory in bulk groups;
+//   - the barriers: mbarrier init, arrive, arrive-expect-tx and try-wait on
+//     a phase parity (with a watchdog that traps rather than hang the card
+//     when a phase never completes, and a plain spin for tight code);
+//   - wgmma: shared-memory descriptors for 128-byte-swizzled tiles, the
+//     fence / commit / wait, and mma_async m64nNk16 (N = 128, 160, 256) with
+//     both operands in shared memory, fp32 accumulators and B either K-major
+//     or MN-major (the instruction's transpose bit);
+//   - fence.proxy.async, named barriers and setmaxnreg.
+//
+// Descriptor conventions (128-byte swizzle, 16-bit elements; a tile's base
+// 1024-byte aligned, the swizzle atom being 8 rows of 128 bytes):
+//   K-major (A, and B as [N, K]): rows of 64 elements, 8-row groups 1024 bytes
+//     apart (SBO = 1024); a k16 step moves the start address 32 bytes along
+//     the row, and the hardware applies the swizzle to the computed address;
+//   MN-major (B as [K, N]): 64-column chunks, each [rows of K][64 of N],
+//     8 K-rows per 1024 bytes (SBO = 1024), chunks LBO bytes apart; a k16
+//     step moves the start 16 rows (2048 bytes).
+//
+// The wgmma accumulator layout (fp32, m64nN): warp w of the warpgroup holds
+// rows 16w..16w+15; with g = lane / 4, t = lane % 4, registers 4j + 0, 1 hold
+// row g, columns 8j + 2t, 8j + 2t + 1, and registers 4j + 2, 3 row g + 8.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace hopper {
+
+// ---- host: tensor maps ---------------------------------------------------------------
+
+// Errors returned to the caller besides CUDA's own (positive) codes.
+constexpr int kErrNoEncode = -2;        // cuTensorMapEncodeTiled not found
+constexpr int kErrEncodeBase = -1000;   // -1000 - CUresult of a failed encode
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType tensor_map_type() {
+  return std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// A 2-D map of a row-major [rows, cols] matrix of 16-bit elements, `ld`
+// elements from one row to the next, read or written in boxes of
+// box_rows x box_cols. Elements outside the matrix load as zeros and are not
+// stored. Returns 0 or an error above.
+template <typename T>
+inline int encode_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                     uint64_t ld, uint32_t box_rows, uint32_t box_cols,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld * sizeof(T)};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, tensor_map_type<T>(), 2, const_cast<void*>(base), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - int(r);
+}
+
+// ---- device: addresses, barriers, copies ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (the TMA unit).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transfers in this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` has completed. A phase that has
+// not completed after kWatchdogNs means a broken protocol: trap, so that the
+// launch fails with an error instead of holding the card.
+constexpr uint64_t kWatchdogNs = 5000000000ull;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const uint64_t start = globaltimer_ns();
+  while (!mbar_try_wait(addr, parity)) {
+    if (globaltimer_ns() - start > kWatchdogNs) __trap();
+  }
+}
+
+// The same wait without the watchdog, for code whose registers are tight:
+// the timer's 64-bit values made ptxas spill a wgmma consumer holding 80
+// accumulators a thread. Pair it with a watched wait on the other side of
+// the protocol (a producer that traps when its stages never come back).
+__device__ __forceinline__ void mbar_spin_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  while (!mbar_try_wait(addr, parity)) {
+  }
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Load the box at (column c0, row c1) of `map` into shared memory at dst;
+// its bytes count towards the transactions `bar` expects.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Store the box at (column c0, row c1) of `map` from shared memory at src.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N committed store groups are still reading shared memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Until at most N committed store groups are incomplete.
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads of
+// the async proxy (a TMA store of the same bytes).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// ---- device: wgmma -----------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled operand at shared address `addr`
+// (offsets in bytes, stored in 16-byte units).
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr, uint32_t lbo,
+                                                     uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma fence or wait.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define HOPPER_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+#define HOPPER_WGMMA_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), \
+        HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
+#define HOPPER_WGMMA_N160(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79" \
+      "}, %80, %81, p, 1, 1, 0, %83;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), \
+        HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
+#define HOPPER_WGMMA_N256(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, " \
+      "%123, %124, %125, %126, %127" \
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), \
+        HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72), \
+        HOPPER_D8(80), HOPPER_D8(88), HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), \
+        HOPPER_D8(120) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
+// d (+)= A . B for a 64 x 16 A and a 16 x N B, both in shared memory (descriptors
+// a, b); scale_d = 0 overwrites d. kTransB = 1: B is MN-major.
+template <typename T, int N, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  static_assert(N == 128 || N == 160 || N == 256, "wgmma_ss: N is 128, 160 or 256");
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (N == 128) {
+    if constexpr (bf16) HOPPER_WGMMA_N128("bf16"); else HOPPER_WGMMA_N128("f16");
+  } else if constexpr (N == 160) {
+    if constexpr (bf16) HOPPER_WGMMA_N160("bf16"); else HOPPER_WGMMA_N160("f16");
+  } else {
+    if constexpr (bf16) HOPPER_WGMMA_N256("bf16"); else HOPPER_WGMMA_N256("f16");
+  }
+}
+
+#undef HOPPER_WGMMA_N128
+#undef HOPPER_WGMMA_N160
+#undef HOPPER_WGMMA_N256
+#undef HOPPER_D8
+
+}  // namespace hopper

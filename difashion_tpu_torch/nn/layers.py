@@ -35,9 +35,10 @@ class Dense(nn.Linear):
     the skinny-N matmul kernel where `dense_route` takes it: the JAX
     package's `pallas_dense_dot` gate, on CUDA. There x and the weight are
     cast to the compute dtype (autocast's, where it is on; the gradient flows
-    back through the cast to an fp32 master weight), multiplied by the kernel
-    (through `SkinnyMatmul` while autograd records), and the bias is added
-    after, as flax's Dense adds it. Outside the gate, and always on the CPU,
+    back through the cast to an fp32 master weight), and the kernel (through
+    `SkinnyMatmul` while autograd records) multiplies them and adds the bias,
+    cast to the same dtype, to the rounded product in its epilogue, as flax's
+    Dense adds it after the product. Outside the gate, and always on the CPU,
     `F.linear`. While `kernels.plain_versions()` is open the gated products
     take the kernel's plain version."""
 
@@ -47,13 +48,13 @@ class Dense(nn.Linear):
         x_dtype, w_dtype = compute_dtypes(x, self.weight)
         x2 = x.to(x_dtype).reshape(-1, x.shape[-1])
         w = self.weight.to(w_dtype)
+        b = None if self.bias is None else self.bias.to(x_dtype)
         plain = kernels.plain_active()
-        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
-            y = SkinnyMatmul.apply(x2, w, plain)
+        if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad
+                                        or (b is not None and b.requires_grad)):
+            y = SkinnyMatmul.apply(x2, w, plain, b)
         else:
-            y = (skinny_matmul_ref if plain else skinny_matmul)(x2, w)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
+            y = (skinny_matmul_ref if plain else skinny_matmul)(x2, w, b)
         return y.reshape(x.shape[:-1] + (w.shape[0],))
 
 

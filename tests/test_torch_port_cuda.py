@@ -371,6 +371,66 @@ def test_skinny_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     assert torch.equal(skinny_matmul(wide[:, :k], w), o)
 
 
+def _mm_close_after_bias(got, want, prod, dtype):
+    """Kernel vs plain with a bias: the products may round one unit in the
+    last place apart (as `_mm_close`), and the sums with the bias round once
+    more (a unit of the result's)."""
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= rel * (prod.float().abs() + want.float().abs()) + 1e-3).all())
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("w_kn", [False, True])
+def test_skinny_matmul_bias_and_layout_match_plain(dev, m, k, n, dtype, w_kn):
+    """The kernel with a bias, and with the weight given as [K, N] (`w_kn`,
+    the backward's dx layout), against the plain version; the [K, N] form of
+    a weight gives what its [N, K] form gives."""
+    x, w = _mm_inputs(m, k, n, dtype, dev, seed=1)
+    b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(2), device=dev).to(dtype)
+    wl = w.t().contiguous() if w_kn else w
+    kernels.reset_launches()
+    o = skinny_matmul(x, wl, b, w_kn=w_kn)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["skinny_matmul"] == 1
+    assert o.dtype == dtype and o.shape == (m, n) and o.is_contiguous()
+    prod = skinny_matmul_ref(x, wl, w_kn=w_kn)
+    assert _mm_close_after_bias(o, skinny_matmul_ref(x, wl, b, w_kn=w_kn), prod, dtype)
+    no_bias = skinny_matmul(x, wl, w_kn=w_kn)
+    assert _mm_close(no_bias, prod, dtype) and _mm_close(no_bias, skinny_matmul(x, w), dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 64, 30), (2048, 320, 1001)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_skinny_matmul_odd_n_matches_plain(dev, m, k, n, dtype):
+    """N % 8 != 0: rows of o are not 16-byte multiples, so the epilogue
+    stores from registers instead of through TMA."""
+    x, w = _mm_inputs(m, k, n, dtype, dev, seed=5)
+    b = torch.randn(n, device=dev).to(dtype)
+    for bias in (None, b):
+        o = skinny_matmul(x, w, bias)
+        torch.cuda.synchronize()
+        prod = skinny_matmul_ref(x, w)
+        assert o.shape == (m, n) and o.is_contiguous()
+        assert _mm_close_after_bias(o, skinny_matmul_ref(x, w, bias), prod, dtype)
+
+
+def test_skinny_matmul_wrapper_rejects_bias_and_layout(dev):
+    x, w = _mm_inputs(512, 64, 64, torch.bfloat16, dev)
+    b = torch.zeros(64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        skinny_matmul(x, w, b.float())                       # bias dtype
+    with pytest.raises(ValueError):
+        skinny_matmul(x, w, b[:32])                          # bias length
+    with pytest.raises(ValueError):
+        skinny_matmul(x, w, b.cpu())
+    with pytest.raises(ValueError):
+        skinny_matmul(x, w[:60].t().contiguous(), w_kn=True)  # [K, N] with N % 8
+    with pytest.raises(ValueError):
+        skinny_matmul(x, w[:32], w_kn=True)                  # [K, N] with K != x's
+
+
 def test_skinny_matmul_wrapper_rejects(dev):
     x, w = _mm_inputs(512, 64, 64, torch.bfloat16, dev)
     with pytest.raises(TypeError):
@@ -414,6 +474,30 @@ def test_dense_routes_through_the_kernel(dev):
     with torch.autocast("cuda", dtype=torch.bfloat16), torch.no_grad():
         dense(x[:, :512])
     assert kernels.LAUNCHES["skinny_matmul"] == 2
+
+
+def test_skinny_matmul_autograd_with_bias_matches_plain(dev):
+    """Forward with the bias in the epilogue, dx through the kernel on the
+    stored weight (no transposed copy), dw and db plain: against the plain
+    Function."""
+    x, w = _mm_inputs(4096, 320, 640, torch.bfloat16, dev, seed=4)
+    b = torch.randn(640, device=dev).bfloat16()
+    for t in (x, w, b):
+        t.requires_grad_()
+    g = torch.randn(4096, 640, device=dev).bfloat16()
+    kernels.reset_launches()
+    y = SkinnyMatmul.apply(x, w, False, b)
+    y.backward(g)
+    assert kernels.LAUNCHES["skinny_matmul"] == 2
+    grads = [t.grad.clone() for t in (x, w, b)]
+    for t in (x, w, b):
+        t.grad = None
+    y_plain = SkinnyMatmul.apply(x, w, True, b)
+    y_plain.backward(g)
+    assert _mm_close_after_bias(y, y_plain, skinny_matmul_ref(x, w), torch.bfloat16)
+    assert _mm_close(grads[0], x.grad, torch.bfloat16)
+    assert torch.equal(grads[1], w.grad) and torch.equal(grads[2], b.grad)
+    assert grads[2].dtype == torch.bfloat16
 
 
 def test_skinny_matmul_autograd_matches_plain(dev):

@@ -9,7 +9,9 @@ CUDA kernel itself is held against the same plain version on the card
 Tolerances: fp32 1e-5 (sums of at most 320 products in another order). bf16:
 both sides sum in fp32 and round once, so they differ by at most one unit in
 the last place where the two sums straddle a rounding boundary (2^-7 of the
-value)."""
+value); with a bias, added to the rounded product and rounded again, by that
+unit of the product plus one of the result."""
+import contextlib
 import importlib.util
 import os
 
@@ -71,6 +73,105 @@ def test_plain_version_matches_jax_kernel(jmm, m, k, n, dtype):
     assert torch.equal(sm.skinny_matmul(tx, tw), got)
     np.testing.assert_allclose(got.float().numpy(), want,
                                **(TOL32 if dtype == "float32" else TOL_BF16))
+
+
+def _bias(n, seed=3):
+    return np.random.RandomState(seed).randn(n).astype(np.float32)
+
+
+def _close_after_bias(got, want, prod, dtype):
+    """fp32: 1e-5. bf16: both round the fp32 sum once (one unit in the last
+    place of the product apart at most, where the two sums straddle a
+    rounding boundary) and round the sum with the bias once more (a unit of
+    the result's)."""
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **TOL32)
+    else:
+        assert (np.abs(got - want) <= 2.0 ** -7 * (np.abs(prod) + np.abs(want)) + 1e-6).all()
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w_kn", [False, True])
+def test_plain_version_with_bias_matches_jax_kernel(jmm, m, k, n, dtype, w_kn):
+    """The plain version with a bias, the weight as [N, K] or as [K, N]
+    (`w_kn`, the backward's dx layout), against the Pallas kernel in
+    interpret mode plus the bias added as flax's Dense adds it: to the
+    product in the compute dtype."""
+    x, w = _xw(m, k, n, seed=4)
+    b = _bias(n)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    prod = jmm.matmul_2d(jnp.asarray(x, jd), jnp.asarray(w, jd), interpret=True)
+    want = np.asarray((prod + jnp.asarray(b, jd)).astype(jnp.float32))
+    tx, tb = torch.from_numpy(x).to(td), torch.from_numpy(b).to(td)
+    tw = torch.from_numpy(w if w_kn else w.T.copy()).to(td)
+    got = sm.skinny_matmul_ref(tx, tw, tb, w_kn=w_kn)
+    assert got.dtype == td and got.shape == (m, n)
+    assert torch.equal(sm.skinny_matmul(tx, tw, tb, w_kn=w_kn), got)
+    _close_after_bias(got.float().numpy(), want, np.asarray(prod.astype(jnp.float32)), dtype)
+    # without a bias, the [K, N] layout is the same product
+    np.testing.assert_array_equal(
+        sm.skinny_matmul_ref(tx, tw, w_kn=w_kn).float().numpy(),
+        sm.skinny_matmul_ref(tx, tw.t().contiguous(), w_kn=not w_kn).float().numpy())
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 64, 32), (1000, 96, 64)])
+@pytest.mark.parametrize("plain", [True, False])
+def test_gradients_with_bias_match_jax_custom_vjp(jmm, m, k, n, plain):
+    """`SkinnyMatmul` with a bias against `jax.grad` through the `_matmul`
+    custom VJP plus the bias add: dx, dw and db, fp32."""
+    x, w = _xw(m, k, n, seed=5)
+    b = _bias(n, seed=6)
+    g = np.random.RandomState(7).randn(m, n).astype(np.float32)
+    loss = lambda x, w, b: jnp.sum((jmm.matmul_2d(x, w, interpret=True) + b) * g)
+    jdx, jdw, jdb = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                                       jnp.asarray(b))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w.T.copy()).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    out = sm.SkinnyMatmul.apply(tx, tw, plain, tb)
+    np.testing.assert_allclose(out.detach().numpy(), x @ w + b, **TOL32)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **TOL32)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw).T, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb), rtol=1e-5, atol=1e-4)
+    # the bias alone (a frozen x and weight)
+    tb.grad = None
+    sm.SkinnyMatmul.apply(tx.detach(), tw.detach(), plain, tb).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb), rtol=1e-5, atol=1e-4)
+
+
+def test_bias_in_the_function_matches_autograd_through_the_add():
+    """In bf16 the bias inside `SkinnyMatmul` gives bit for bit what the
+    product followed by `y + bias` gave under autograd: the same output, dx,
+    dw, and db = g summed over rows in g's dtype."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(2048, 96).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.randn(64, 96).astype(np.float32) / 10).bfloat16()
+    b = torch.from_numpy(rng.randn(64).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.randn(2048, 64).astype(np.float32)).bfloat16()
+
+    def run(inside):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        if inside:
+            y = sm.SkinnyMatmul.apply(leaves[0], leaves[1], True, leaves[2])
+        else:
+            y = sm.SkinnyMatmul.apply(leaves[0], leaves[1], True) + leaves[2]
+        y.backward(g)
+        return [y.detach()] + [t.grad for t in leaves]
+
+    for got, want in zip(run(True), run(False)):
+        assert got.dtype == want.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_tile_widths():
+    """The tile width is one the kernel is built for, at every N the gate
+    passes, in both layouts; the routed N take the measured table."""
+    for n in range(8, sm.MAX_N + 1, 8):
+        for w_kn in (False, True):
+            assert sm.tile_n(n, w_kn) in sm.TILE_WIDTHS
+    assert [sm.tile_n(n) for n in (320, 640, 1280, 512)] == [160, 160, 160, 128]
+    assert [sm.tile_n(n, True) for n in (320, 640, 1280, 2560)] == [128, 160, 160, 128]
 
 
 @pytest.mark.parametrize("m,k,n", [(512, 64, 32), (1000, 96, 64)])
@@ -217,6 +318,31 @@ def test_dense_kernel_route_matches_linear(monkeypatch, bias, autocast):
         np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
                                    rtol=2e-2 if autocast else 1e-5,
                                    atol=2e-2 if autocast else 1e-4)
+
+
+@pytest.mark.parametrize("autocast", [False, True])
+def test_dense_plain_versions_match_the_kernel_route(monkeypatch, autocast):
+    """With the gate forced open, Dense under `kernels.plain_versions()`
+    (the plain version inside `SkinnyMatmul`) gives what its kernel route
+    gives on the CPU, where the wrapper computes the plain version: the same
+    output and gradients, bias included."""
+    torch.manual_seed(1)
+    dense = Dense(96, 64)
+    torch.nn.init.normal_(dense.bias)
+    x = torch.randn(2, 1024, 96, requires_grad=True)
+    g = torch.randn(2, 1024, 64)
+    monkeypatch.setattr(layers, "dense_route", lambda *_: True)
+
+    def run(plain):
+        x.grad = dense.weight.grad = dense.bias.grad = None
+        with kernels.plain_versions() if plain else contextlib.nullcontext():
+            with torch.autocast("cpu", dtype=torch.bfloat16, enabled=autocast):
+                y = dense(x)
+            y.backward(g.to(y.dtype))
+        return [y.detach()] + [t.grad.clone() for t in (x, dense.weight, dense.bias)]
+
+    for got, want in zip(run(False), run(True)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_every_linear_is_dense():
