@@ -16,9 +16,16 @@ line each:
      one process per source, all at once;
   3. kernel: the flash-attention forward kernel against its plain version at
      the shapes of the sampler's UNet attentions (batch 16 = 4 CFG branches x
-     4 items) and a few short and ragged ones, with its time, the plain
-     version's, one library call's (F.scaled_dot_product_attention, timed as
-     a yardstick only) and the card's lower bound for the same work;
+     4 items) and a few short and ragged ones, at the sd15 UNet's (batch 16,
+     8 heads: 4096 tokens at d = 40, 1024 at d = 80, and their 77-token
+     cross-attentions), all in bf16, and the fp32 kernel at the sampler's
+     shapes in fp32; per site its time, the plain version's, one library
+     call's (F.scaled_dot_product_attention, timed as a yardstick only), the
+     card's lower bound for the same work and its share of it, TFLOP/s and
+     the wrapper's host microseconds per call;
+  3a. sd15_unet: one full-width sd15 UNet forward (bf16, seeded weights,
+     batch 16) through the kernels against one through the plain versions
+     (d = 40 and 80 on the forward kernel, d = 160 plain), both against fp32;
   3b. kernel_gn: the GroupNorm(+SiLU) kernel against its plain version at
      every distinct GroupNorm shape of the sampler's UNet forward (batch 16),
      the train step's (batch 8), the VAE decode (batch 4) and the VAE encode
@@ -69,10 +76,16 @@ line each:
   8. kernel_bwd: the dQ and dK/dV kernels against the plain backward at the
      training UNet's attention shapes (batch 8 = 2 outfits x 4 items) and the
      ragged ones, both held against the plain backward in fp32, with their
-     times, the plain versions', the library backward's and the bounds;
+     times, the plain versions', the library backward's and the bounds, also
+     at sd15's training shapes (d = 40 and 80, handed to the kernels as
+     zero-padded copies, with the copies' cost); and the fp32 dQ and dK/dV
+     kernels against the fp32 plain backward at the training shapes;
   9. train_reference: the training loss and its gradients at the tiny config
      with injected draws, on the card in bf16 autocast through all three
      kernels, against the CPU in fp32 (the CPU's own bf16 run beside);
+  9a. fp32_reference: the tiny path in fp32 (mixed_precision other than
+     "bf16"): PNDM generation with the decode, and the training loss and
+     gradients, every attention on the fp32 kernels, against the CPU in fp32;
  10. unet_grad: one full-width UNet forward and backward at batch 4 in bf16
      autocast, attention through the kernels against the plain versions, on
      the gradient of every parameter, both against an fp32 run;
@@ -100,6 +113,7 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12      # outside the tensor cores: the fp32 kernels use no tf32
 PEAK_HBM_BYTES = 3.35e12
 
 # kernel vs plain, bf16 inputs: P is rounded to bf16 before the PV product
@@ -109,6 +123,17 @@ MAX_ABS_TOL, MEAN_ABS_TOL = 3e-2, 3e-3
 # the LSE is fp32 from the same bf16 products: ex2.approx and another
 # summation order only
 LSE_TOL = 1e-3
+# the fp32 kernels vs their plain versions in fp32 (no tf32 on either side):
+# fp32 sums in another order and exp2f for exp. The forward's O and LSE
+# within 2e-5; a backward gradient within 2e-5 relative L2 (sums of up to
+# 4096 terms: about sqrt(4096) * 2^-24 = 4e-6, with margin)
+F32_TOL = 2e-5
+# the tiny path in fp32 on the card vs the CPU's fp32 run: the same
+# arithmetic in fp32 (TF32 off for matmuls and convolutions) with sums in
+# another order, through 20 guided steps at CFG scale 12 (latents), and the
+# loss and gradients of one training step: measured at 1.4e-6 and 1e-6 on an
+# H100, two orders of magnitude of margin
+F32_REF_TOL = 1e-4
 UNET_REL_L2_TOL = 1e-2
 REF_REL_L2_TOL, REF_PIXEL_TOL = 2e-2, 1.0
 
@@ -151,6 +176,13 @@ ETA = 0.1
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def all_counts(counts):
+    """Every launch counter of `nn.kernels.LAUNCHES`: `counts`, the others 0."""
+    from difashion_tpu_torch.nn import kernels
+
+    return {name: counts.get(name, 0) for name in kernels.COUNTERS}
 
 
 def main_path_attention_sites(cfg, batch):
@@ -208,26 +240,32 @@ def device_ms(fn, reps=25, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def attention_bound(b, h, sq, skv, d):
+def attention_bound(b, h, sq, skv, d, dtype=None):
     """(bound ms, 'operations' or 'bytes', ops, bytes): two products of
-    2*Sq*Skv*d each per (batch, head); q, k, v read once, o written once in
-    bf16, the LSE written once in fp32."""
+    2*Sq*Skv*d each per (batch, head) at the tensor cores' bf16 rate (fp32's
+    rate outside them for an fp32 call: no tf32); q, k, v read once, o
+    written once in the input dtype, the LSE written once in fp32."""
+    f32 = dtype is not None and str(dtype) == "torch.float32"
     ops = 4.0 * b * h * sq * skv * d
-    nbytes = 2.0 * b * h * d * (2 * sq + 2 * skv) + 4.0 * b * h * sq
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    nbytes = (4.0 if f32 else 2.0) * b * h * d * (2 * sq + 2 * skv) + 4.0 * b * h * sq
+    t_ops = ops / (PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
-def backward_bound(kind, b, h, sq, skv, d):
+def backward_bound(kind, b, h, sq, skv, d, dtype=None):
     """(bound ms, 'operations' or 'bytes', ops, bytes) of one backward kernel:
-    dQ is 3 products (6*B*H*Sq*Skv*d operations), dK/dV 4 (8*B*H*Sq*Skv*d);
-    q, k, v and dO read once in bf16, the LSE and D once in fp32, the
-    kernel's gradients written once in bf16."""
+    dQ is 3 products (6*B*H*Sq*Skv*d operations), dK/dV 4 (8*B*H*Sq*Skv*d),
+    at the bf16 tensor-core rate (fp32's outside them for fp32); q, k, v and
+    dO read once in the input dtype, the LSE and D once in fp32, the
+    kernel's gradients written once in the input dtype."""
+    f32 = dtype is not None and str(dtype) == "torch.float32"
     products = 3 if kind == "dq" else 4
     ops = 2.0 * products * b * h * sq * skv * d
     written = sq if kind == "dq" else 2 * skv
-    nbytes = 2.0 * b * h * d * (2 * sq + 2 * skv + written) + 8.0 * b * h * sq
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    nbytes = (4.0 if f32 else 2.0) * b * h * d * (2 * sq + 2 * skv + written) + 8.0 * b * h * sq
+    t_ops = ops / (PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
@@ -263,7 +301,13 @@ def phase_build():
     emit({"phase": "build", "kernels": list(logs), "seconds": seconds, "ptxas": ptxas})
 
 
-def phase_kernel(sites):
+def phase_kernel(sites, sd15_sites):
+    """The forward kernel against its plain version, timed beside its plain
+    version, SDPA (a yardstick only) and the bound, with its share of the
+    bound, TFLOP/s and the wrapper's host microseconds per call: at the
+    sampler's sites and EXTRA_SHAPES in bf16, the sd15 UNet's sites (d = 40
+    and 80) in bf16, and the sampler's sites in fp32 (the fp32 kernel, an
+    fp32 model's path). Returns the three lists of rows."""
     import torch
     import torch.nn.functional as F
 
@@ -273,42 +317,93 @@ def phase_kernel(sites):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = []
-    shapes = [(n, b, h, sq, skv, d, c) for n, b, h, sq, skv, d, c in sites]
-    shapes += [(n, b, h, sq, skv, d, 0) for n, b, h, sq, skv, d in EXTRA_SHAPES]
-    for name, b, h, sq, skv, d, calls in shapes:
-        # the main path's layout: [B, S, H*D] projections seen as [B, H, S, D]
-        q, k, v = (torch.randn(b, s, h * d, generator=gen, device="cuda")
-                   .to(torch.bfloat16).view(b, s, h, d).transpose(1, 2)
-                   for s in (sq, skv, skv))
-        o, lse = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ro, rlse = flash_attention_ref(q.float(), k.float(), v.float())
-        err = (o.float() - ro).abs()
-        max_err, mean_err = err.max().item(), err.mean().item()
-        lse_err = (lse - rlse).abs().max().item()
-        del ro, rlse, err
-        ok = (max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL and lse_err <= LSE_TOL
-              and bool(torch.isfinite(o).all()))
-        kernel_ms = device_ms(lambda: flash_attention(q, k, v))
-        plain_ms = device_ms(lambda: flash_attention_ref(q, k, v), reps=20, warmup=2)
-        library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        bound_ms, bound_by, ops, nbytes = attention_bound(b, h, sq, skv, d)
-        row = {"phase": "kernel", "kernel": "flash_attention_fwd", "site": name,
-               "shape_bhqkd": [b, h, sq, skv, d], "calls_per_unet_forward": calls,
-               "max_abs_err": max_err, "mean_abs_err": mean_err, "lse_max_abs_err": lse_err,
-               "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": ops / kernel_ms / 1e9, "gbytes_per_s": nbytes / kernel_ms / 1e6,
-               "ok": ok}
-        emit(row)
-        results.append(row)
-        del q, k, v, o, lse
-        torch.cuda.empty_cache()
-    bad = [r["site"] for r in results if not r["ok"]]
+    groups = {"sd2_base": [(n, b, h, sq, skv, d, c, torch.bfloat16)
+                           for n, b, h, sq, skv, d, c in sites]
+              + [(n, b, h, sq, skv, d, 0, torch.bfloat16) for n, b, h, sq, skv, d in EXTRA_SHAPES],
+              "sd15": [(n, b, h, sq, skv, d, c, torch.bfloat16)
+                       for n, b, h, sq, skv, d, c in sd15_sites],
+              "fp32": [(n, b, h, sq, skv, d, c, torch.float32)
+                       for n, b, h, sq, skv, d, c in sites]}
+    out = {}
+    for config, shapes in groups.items():
+        results = out[config] = []
+        for name, b, h, sq, skv, d, calls, dtype in shapes:
+            f32 = dtype == torch.float32
+            # the main path's layout: [B, S, H*D] projections seen as [B, H, S, D]
+            q, k, v = (torch.randn(b, s, h * d, generator=gen, device="cuda")
+                       .to(dtype).view(b, s, h, d).transpose(1, 2)
+                       for s in (sq, skv, skv))
+            o, lse = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ro, rlse = flash_attention_ref(q.float(), k.float(), v.float())
+            err = (o.float() - ro).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            lse_err = (lse - rlse).abs().max().item()
+            del ro, rlse, err
+            if f32:
+                ok = max_err <= F32_TOL and lse_err <= F32_TOL
+            else:
+                ok = max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL and lse_err <= LSE_TOL
+            ok = ok and bool(torch.isfinite(o).all())
+            reps = 5 if f32 else 25
+            kernel_ms = device_ms(lambda: flash_attention(q, k, v), reps=reps)
+            plain_ms = device_ms(lambda: flash_attention_ref(q, k, v), reps=5 if f32 else 20,
+                                 warmup=2)
+            library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=reps)
+            with torch.inference_mode():
+                host_us = host_us_per_call(lambda: flash_attention(q, k, v),
+                                           calls=20 if f32 else 200)
+            bound_ms, bound_by, ops, nbytes = attention_bound(b, h, sq, skv, d, dtype)
+            row = {"phase": "kernel", "kernel": "flash_attention_fwd" + ("_f32" if f32 else ""),
+                   "config": config, "dtype": str(dtype)[6:], "site": name,
+                   "shape_bhqkd": [b, h, sq, skv, d], "calls_per_unet_forward": calls,
+                   "max_abs_err": max_err, "mean_abs_err": mean_err, "lse_max_abs_err": lse_err,
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "share_of_bound": bound_ms / kernel_ms,
+                   "tflops": ops / kernel_ms / 1e9, "gbytes_per_s": nbytes / kernel_ms / 1e6,
+                   "host_us_per_call": host_us, "ok": ok}
+            emit(row)
+            results.append(row)
+            del q, k, v, o, lse
+            torch.cuda.empty_cache()
+    rows = [r for rs in out.values() for r in rs]
+    totals = {config: {key: sum(r[key] * r["calls_per_unet_forward"] for r in rs)
+                       for key in ("kernel_ms", "library_ms", "bound_ms", "plain_ms")}
+              for config, rs in out.items()}
+    emit({"phase": "kernel", "per_unet_forward": totals,
+          "host_per_call": flash_host_per_call(sites[0])})
+    bad = [(r["config"], r["site"]) for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain version at {bad}")
-    return results
+    return out["sd2_base"], out["sd15"], out["fp32"]
+
+
+def flash_host_per_call(site):
+    """The forward wrapper's host microseconds per call at a sampler site, in
+    layers: the C entry alone (four tensor maps encoded and the launch,
+    through ctypes), then `flash_attention` (+ the checks, the outputs'
+    allocation, the strides); SDPA's beside."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from difashion_tpu_torch.nn.kernels import flash_attention as fa
+
+    _, b, h, sq, skv, d, _ = site
+    q, k, v = (torch.randn(b, s, h * d, device="cuda", dtype=torch.bfloat16)
+               .view(b, s, h, d).transpose(1, 2) for s in (sq, skv, skv))
+    o = fa._empty_bshd(b, h, sq, d, q)
+    lse = torch.empty(b * h, sq, dtype=torch.float32, device="cuda")
+    st = (ctypes.c_int64 * 12)(*fa._strides((q, k, v, o)))
+    fn = fa._fn(fa.NAME, fa.NAME, 5, 5)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq,
+            skv, d, ctypes.addressof(st), d ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+    with torch.inference_mode():
+        return {"site": site[0], "c_entry_us": host_us_per_call(lambda: fn(*args)),
+                "flash_attention_us": host_us_per_call(lambda: fa.flash_attention(q, k, v)),
+                "sdpa_us": host_us_per_call(lambda: F.scaled_dot_product_attention(q, k, v))}
 
 
 def phase_precompute(model, mm_paths):
@@ -353,10 +448,9 @@ def phase_precompute(model, mm_paths):
     peak = torch.cuda.max_memory_allocated()
     batches = -(-PRECOMPUTE_ITEMS // PRECOMPUTE_BATCH)
     per_batch = count_groupnorms(model.vae.encoder)
-    want = {"flash_attention_fwd": 0, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-            "group_norm_silu": batches * per_batch,
-            "skinny_matmul": (batches - 1) * len(mm_paths["vae_encode"])
-            + len(mm_paths["encode_ragged"])}
+    want = all_counts({"group_norm_silu": batches * per_batch,
+                       "skinny_matmul": (batches - 1) * len(mm_paths["vae_encode"])
+                       + len(mm_paths["encode_ragged"])})
     shape = (PRECOMPUTE_ITEMS, lat, lat, vcfg.latent_channels)
     finite = all(bool(np.isfinite(v).all()) for v in moments.values())
     shapes_ok = all(v.shape == shape and v.dtype == np.float32 for v in moments.values())
@@ -431,12 +525,16 @@ def phase_precompute(model, mm_paths):
     return launches
 
 
-def phase_kernel_bwd(sites):
+def phase_kernel_bwd(sites, sd15_sites):
     """The dQ and dK/dV kernels at the training UNet's attention shapes and the
     ragged ones: q, k, v in the projections' [B, S, H, D] layout, a random
-    cotangent (never all ones), O and the LSE from the forward kernel. Both
-    the kernels and the plain backward run on the same bf16 inputs and are
-    held against the plain backward in fp32 of the same values."""
+    cotangent (never all ones), O and the LSE from the forward kernel. In
+    bf16, the kernels and the plain backward run on the same inputs and are
+    held against the plain backward in fp32 of the same values, also at the
+    sd15 UNet's shapes (d = 40 and 80: the wrappers hand the kernels
+    zero-padded copies, whose cost `pad_ms` gives); in fp32 (the fp32
+    kernels, at the training shapes) the kernels are held against the plain
+    backward in fp32 itself. Returns the bf16, fp32 and sd15 rows."""
     import torch
     import torch.nn.functional as F
 
@@ -449,14 +547,21 @@ def phase_kernel_bwd(sites):
         flash_attention_dq,
         flash_attention_dq_ref,
         flash_attention_ref,
+        kernel_head_dim,
+        pad_head_dim,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    results = []
-    shapes = list(sites) + [(n, b, h, sq, skv, d, 0) for n, b, h, sq, skv, d in EXTRA_SHAPES]
-    for name, b, h, sq, skv, d, calls in shapes:
+    results, f32_results, sd15_results = [], [], []
+    shapes = [(*site, torch.bfloat16) for site in sites]
+    shapes += [(n, b, h, sq, skv, d, 0, torch.bfloat16) for n, b, h, sq, skv, d in EXTRA_SHAPES]
+    shapes += [(*site, torch.float32) for site in sites]
+    shapes += [(f"sd15_{n}", b, h, sq, skv, d, c, torch.bfloat16)
+               for n, b, h, sq, skv, d, c in sd15_sites]
+    for name, b, h, sq, skv, d, calls, dtype in shapes:
+        f32 = dtype == torch.float32
         proj = lambda s: (torch.randn(b, s, h * d, generator=gen, device="cuda")
-                          .to(torch.bfloat16).view(b, s, h, d).transpose(1, 2))
+                          .to(dtype).view(b, s, h, d).transpose(1, 2))
         q, k, v, do = proj(sq), proj(skv), proj(skv), proj(sq)
         scale = d ** -0.5
         o, lse = flash_attention(q, k, v)
@@ -465,47 +570,66 @@ def phase_kernel_bwd(sites):
         kern = (flash_attention_dq(*args),) + flash_attention_dkv(*args)
         torch.cuda.synchronize()
         plain = (flash_attention_dq_ref(*args),) + flash_attention_dkv_ref(*args)
-        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
-        o32, lse32 = flash_attention_ref(q32, k32, v32)
-        ref = flash_attention_bwd_ref(q32, k32, v32, o32, lse32, do32, scale)
-        errs = {g: {"kernel_vs_fp32": rel_l2(kg, r), "plain_vs_fp32": rel_l2(pg, r),
-                    "max_abs_err": (kg.float() - pg.float()).abs().max().item()}
-                for g, kg, pg, r in zip(("dq", "dk", "dv"), kern, plain, ref)}
+        if f32:
+            errs = {g: {"kernel_vs_plain": rel_l2(kg, pg),
+                        "max_abs_err": (kg - pg).abs().max().item()}
+                    for g, kg, pg in zip(("dq", "dk", "dv"), kern, plain)}
+            good = all(e["kernel_vs_plain"] <= F32_TOL for e in errs.values())
+        else:
+            q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+            o32, lse32 = flash_attention_ref(q32, k32, v32)
+            ref = flash_attention_bwd_ref(q32, k32, v32, o32, lse32, do32, scale)
+            errs = {g: {"kernel_vs_fp32": rel_l2(kg, r), "plain_vs_fp32": rel_l2(pg, r),
+                        "max_abs_err": (kg.float() - pg.float()).abs().max().item()}
+                    for g, kg, pg, r in zip(("dq", "dk", "dv"), kern, plain, ref)}
+            good = all(e["kernel_vs_fp32"] <= BWD_REL_L2_TOL
+                       and e["kernel_vs_fp32"] <= VS_PLAIN * e["plain_vs_fp32"]
+                       for e in errs.values())
+            del ref, q32, k32, v32, do32, o32, lse32
         finite = all(bool(torch.isfinite(t).all()) for t in kern)
-        del plain, ref, q32, k32, v32, do32, o32, lse32
+        del plain
         torch.cuda.empty_cache()
-        ok = finite and all(e["kernel_vs_fp32"] <= BWD_REL_L2_TOL
-                            and e["kernel_vs_fp32"] <= VS_PLAIN * e["plain_vs_fp32"]
-                            for e in errs.values())
-        row = {"phase": "kernel_bwd", "site": name, "shape_bhqkd": [b, h, sq, skv, d],
+        reps, plain_reps = (5, 3) if f32 else (25, 10)
+        row = {"phase": "kernel_bwd", "dtype": str(dtype)[6:], "site": name,
+               "shape_bhqkd": [b, h, sq, skv, d],
                "calls_per_train_step": calls, "errors": errs, "finite": finite,
                "dq_max_abs_err": errs["dq"]["max_abs_err"],
                "dkv_max_abs_err": max(errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"]),
-               "dq_ms": device_ms(lambda: flash_attention_dq(*args)),
-               "dkv_ms": device_ms(lambda: flash_attention_dkv(*args)),
+               "dq_ms": device_ms(lambda: flash_attention_dq(*args), reps=reps),
+               "dkv_ms": device_ms(lambda: flash_attention_dkv(*args), reps=reps),
                "delta_ms": device_ms(lambda: attention_delta(o, do)),
-               "dq_plain_ms": device_ms(lambda: flash_attention_dq_ref(*args), reps=10, warmup=1),
-               "dkv_plain_ms": device_ms(lambda: flash_attention_dkv_ref(*args), reps=10,
-                                         warmup=1)}
+               "dq_plain_ms": device_ms(lambda: flash_attention_dq_ref(*args), reps=plain_reps,
+                                        warmup=1),
+               "dkv_plain_ms": device_ms(lambda: flash_attention_dkv_ref(*args),
+                                         reps=plain_reps, warmup=1)}
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         ol = F.scaled_dot_product_attention(ql, kl, vl)
         row["library_ms"] = device_ms(
-            lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True))
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True), reps=reps)
         del ol, ql, kl, vl
         for kind in ("dq", "dkv"):
-            bound_ms, bound_by, ops, nbytes = backward_bound(kind, b, h, sq, skv, d)
+            bound_ms, bound_by, ops, nbytes = backward_bound(kind, b, h, sq, skv, d, dtype)
             row.update({f"{kind}_bound_ms": bound_ms, f"{kind}_bound_by": bound_by,
                         f"{kind}_tflops": ops / row[f"{kind}_ms"] / 1e9,
                         f"{kind}_gbytes_per_s": nbytes / row[f"{kind}_ms"] / 1e6})
-        row["ok"] = ok
+        dp = kernel_head_dim(d, dtype, backward=True)
+        if dp != d:
+            # what the two wrappers add to the kernels: each pads q, k, v and
+            # dO to dp columns; dQ, dK and dV are copied back to d columns
+            outs = [pad_head_dim(t, dp) for t in kern]
+            row["pad_ms"] = (2 * device_ms(lambda: [pad_head_dim(t, dp) for t in (q, k, v, do)])
+                             + device_ms(lambda: [t[..., :d].contiguous() for t in outs]))
+            row["padded_head_dim"] = dp
+            del outs
+        row["ok"] = finite and good
         emit(row)
-        results.append(row)
+        (sd15_results if name.startswith("sd15_") else f32_results if f32 else results).append(row)
         del q, k, v, do, o, lse, delta, kern, args
         torch.cuda.empty_cache()
-    bad = [r["site"] for r in results if not r["ok"]]
+    bad = [(r["dtype"], r["site"]) for r in results + f32_results + sd15_results if not r["ok"]]
     if bad:
         raise AssertionError(f"flash backward kernels disagree with the plain backward at {bad}")
-    return results
+    return results, f32_results, sd15_results
 
 
 GN_PATHS = (  # (path, batch): every GroupNorm of these runs is a kernel_gn shape
@@ -909,9 +1033,8 @@ def phase_unet(model, mm_paths):
           "finite": finite, "kernel_launches": launches})
     # the kernel path may be no farther from fp32 than the plain path, give
     # or take the spread of bf16 rounding between two runs
-    want = {"flash_attention_fwd": 32, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-            "group_norm_silu": count_groupnorms(unet),
-            "skinny_matmul": len(mm_paths["sampler_unet"])}
+    want = all_counts({"flash_attention_fwd": 32, "group_norm_silu": count_groupnorms(unet),
+                       "skinny_matmul": len(mm_paths["sampler_unet"])})
     if not (finite and rel(fast, plain) <= UNET_REL_L2_TOL and launches == want
             and fast_ref <= 1.25 * plain_ref):
         raise AssertionError(f"UNet kernel vs plain: rel L2 {rel(fast, plain)}, vs fp32 "
@@ -979,12 +1102,11 @@ def phase_reference():
     for scheduler, ddim_eta in REFERENCE_SCHEDULERS:
         forwards = 21 if scheduler == "pndm" else 20
         # the UNet forwards, then the decoder's mid-attention (d = 32 at this size)
-        expect = {"flash_attention_fwd": forwards * n_attn
-                  + sum(isinstance(m, VAEAttention) for m in cpu.vae.decoder.modules()),
-                  "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                  "group_norm_silu": forwards * count_groupnorms(cpu.unet)
-                  + count_groupnorms(cpu.vae.decoder),
-                  "skinny_matmul": 0}   # the tiny products have at most 1024 rows
+        expect = all_counts({  # the tiny products have at most 1024 rows: no skinny_matmul
+            "flash_attention_fwd": forwards * n_attn
+            + sum(isinstance(m, VAEAttention) for m in cpu.vae.decoder.modules()),
+            "group_norm_silu": forwards * count_groupnorms(cpu.unet)
+            + count_groupnorms(cpu.vae.decoder)})
         out = {}
         for name, model, dev in models:
             gen = torch.Generator().manual_seed(0)
@@ -1020,6 +1142,158 @@ def phase_reference():
             bad.append((scheduler, ddim_eta, rel, pix_mean, launches))
     if bad:
         raise AssertionError(f"tiny generation on the card vs CPU fp32: {bad}")
+
+
+def phase_sd15_unet():
+    """One full-width sd15 UNet forward (conv projections, 8 fixed heads: head
+    dims 40, 80 and 160; seeded weights, bf16, batch 16) through the kernels
+    against one through their plain versions, and both against an fp32
+    forward of the same weights (plain versions), as `phase_unet` holds the
+    sd2_base UNet. The 20 attentions of head dim 40 and 80 run on the forward
+    kernel (its TMA boxes zero-fill them to 64 and 128 columns); the 12 of
+    head dim 160 take plain matmul + softmax, as in the JAX package."""
+    import torch
+
+    from difashion_tpu_torch.config import ModelConfig
+    from difashion_tpu_torch.models.difashion import create_difashion
+    from difashion_tpu_torch.nn import kernels
+    from difashion_tpu_torch.weights import param_count
+
+    cfg = ModelConfig.sd15()
+    sites = main_path_attention_sites(cfg, UNET_BATCH)
+    n_kernel = sum(c for *_, d, c in sites if d <= 128)
+    unet = create_difashion(cfg, seed=0, device="cuda", dtype=torch.bfloat16).unet
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    s = cfg.unet.sample_size
+    x = torch.randn(UNET_BATCH, cfg.unet.in_channels, s, s, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (UNET_BATCH,), generator=gen, device="cuda")
+    ctx = torch.randn(UNET_BATCH, 77, cfg.unet.cross_attention_dim, generator=gen,
+                      device="cuda")
+    mm = dense_sites(cfg)["sampler_unet"]
+    with torch.inference_mode():
+        kernels.reset_launches()
+        fast = unet(x, t, ctx).float()
+        launches = dict(kernels.LAUNCHES)
+        with kernels.plain_versions():
+            plain = unet(x, t, ctx).float()
+    unet.float()
+    with torch.inference_mode(), kernels.plain_versions():
+        ref = unet(x, t, ctx)
+    torch.cuda.synchronize()
+    fast_ref, plain_ref = rel_l2(fast, ref), rel_l2(plain, ref)
+    finite = bool(torch.isfinite(fast).all() and torch.isfinite(plain).all())
+    want = all_counts({"flash_attention_fwd": n_kernel,
+                       "group_norm_silu": count_groupnorms(unet), "skinny_matmul": len(mm)})
+    emit({"phase": "sd15_unet", "config": "sd15", "dtype": "bfloat16",
+          "params": param_count(unet), "batch": UNET_BATCH,
+          "head_dims": sorted({d for *_, d, _ in sites}), "kernel_attentions": n_kernel,
+          "plain_attentions": sum(c for *_, c in sites) - n_kernel,
+          "out_shape": list(fast.shape), "rel_l2": rel_l2(fast, plain),
+          "kernel_vs_fp32_rel_l2": fast_ref, "plain_vs_fp32_rel_l2": plain_ref,
+          "finite": finite, "kernel_launches": launches, "expected_launches": want})
+    ok = (finite and rel_l2(fast, plain) <= UNET_REL_L2_TOL and launches == want
+          and fast_ref <= VS_PLAIN * plain_ref)
+    del unet, fast, plain, ref
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"sd15 UNet kernel vs plain: vs fp32 {fast_ref} / {plain_ref}, "
+                             f"finite {finite}, launches {launches}")
+
+
+def phase_fp32_reference():
+    """The tiny path in fp32 on the card, as a model built with
+    mixed_precision other than "bf16" runs it: generation (PNDM, 20 steps,
+    4-branch CFG, the decode to uint8) and the training loss and gradients
+    with injected draws (autocast off), every attention on the fp32 kernels,
+    against the port's CPU fp32 run of the same weights and inputs. Returns
+    the launches of the two runs (the fp32 kernels' path)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from difashion_tpu_torch.config import ModelConfig, TrainConfig
+    from difashion_tpu_torch.engine.generate import (
+        build_sampler,
+        decode_to_uint8,
+        make_guidance_spec,
+    )
+    from difashion_tpu_torch.engine.train import TrainBatch, difashion_loss
+    from difashion_tpu_torch.models.difashion import create_difashion
+    from difashion_tpu_torch.nn import kernels
+    from difashion_tpu_torch.nn.attention import CrossAttention, VAEAttention
+
+    cfg, tc = ModelConfig.tiny(), TrainConfig(mixed_precision="no")
+    cpu = create_difashion(cfg, seed=0, device="cpu")
+    cuda = copy.deepcopy(cpu).to("cuda")
+    n_attn = sum(isinstance(m, CrossAttention) for m in cpu.unet.modules())
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", cuda, "cuda")):
+        inputs = gor_inputs(model, torch.Generator().manual_seed(0), dev)
+        sampler = build_sampler(model, num_inference_steps=20,
+                                spec=make_guidance_spec(*CFG_SCALES), eta=ETA)
+        kernels.reset_launches()
+        latents = sampler(inputs)
+        out[name] = (latents.cpu(), decode_to_uint8(model, latents).cpu(),
+                     dict(kernels.LAUNCHES))
+    (ref, ref_img, _), (lat, img, gen_launches) = out["cpu"], out["cuda"]
+    rel = ((lat - ref).norm() / ref.norm()).item()
+    pix = (img.int() - ref_img.int()).abs().float()
+    gen_want = all_counts({
+        "flash_attention_fwd_f32": 21 * n_attn
+        + sum(isinstance(m, VAEAttention) for m in cpu.vae.decoder.modules()),
+        "group_norm_silu": 21 * count_groupnorms(cpu.unet) + count_groupnorms(cpu.vae.decoder)})
+
+    # the training loss and gradients, injected draws as in phase_train_reference
+    rng = np.random.RandomState(0)
+    B, olen, h, C = 2, 4, cfg.unet.sample_size, cfg.vae.latent_channels
+    n = B * olen
+    f32 = lambda x: np.asarray(x, np.float32)
+    x = {"mean": f32(rng.randn(B, olen, h, h, C) * 2),
+         "logvar": f32(rng.uniform(-8, -2, (B, olen, h, h, C))),
+         "hist": f32(rng.randn(B, olen, h, h, C) * 0.3), "null_latent": f32(rng.randn(h, h, C) * 0.05),
+         "ids": rng.randint(0, cfg.text.vocab_size, (B, olen, 77)),
+         "enc_eps": f32(rng.randn(n, h, h, C)), "noise": f32(rng.randn(n, h, h, C)),
+         "t_outfit": rng.randint(0, 1000, (B,)), "p_mask": f32(rng.uniform(0, 1, n)),
+         "p_cate": f32(rng.uniform(0, 1, n))}
+
+    def train(model, dev):
+        model.prepare_for_training()
+        t = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+        batch = TrainBatch(None, t["mean"], t["logvar"], t["ids"].long(), t["hist"])
+        with torch.no_grad():
+            null_text = model.encode_text(torch.zeros(1, 77, dtype=torch.long, device=dev))[0]
+        kernels.reset_launches()
+        loss, _ = difashion_loss(model, batch, t["null_latent"], null_text, None, tc,
+                                 injected={k: t[k] for k in ("enc_eps", "noise", "t_outfit",
+                                                             "p_mask", "p_cate")})
+        loss.backward()
+        launches = dict(kernels.LAUNCHES)
+        grads = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                           for _, p in model.trainable_parameters()]).cpu()
+        return loss.item(), grads, launches
+
+    ref_loss, ref_grads, _ = train(cpu, "cpu")
+    loss, grads, train_launches = train(cuda, "cuda")
+    loss_rel, grad_rel = abs(loss - ref_loss) / abs(ref_loss), rel_l2(grads, ref_grads)
+    train_want = all_counts({"flash_attention_fwd_f32": n_attn, "flash_attention_dq_f32": n_attn,
+                             "flash_attention_dkv_f32": n_attn,
+                             "group_norm_silu": count_groupnorms(cpu.unet)})
+    finite = bool(torch.isfinite(lat).all() and np.isfinite(loss) and torch.isfinite(grads).all())
+    emit({"phase": "fp32_reference", "config": "tiny", "dtype": "float32", "scheduler": "pndm",
+          "steps": 20, "latents_rel_l2_vs_cpu_fp32": rel, "image_mean_abs_diff": pix.mean().item(),
+          "image_max_abs_diff": pix.max().item(), "loss_cpu_fp32": ref_loss, "loss_cuda_fp32": loss,
+          "loss_rel_diff": loss_rel, "grad_rel_l2_vs_cpu_fp32": grad_rel, "finite": finite,
+          "generation_launches": gen_launches, "train_launches": train_launches})
+    if not (finite and rel <= F32_REF_TOL and pix.mean().item() <= REF_PIXEL_TOL
+            and loss_rel <= F32_REF_TOL and grad_rel <= F32_REF_TOL
+            and gen_launches == gen_want and train_launches == train_want):
+        raise AssertionError(f"tiny fp32 path on the card vs CPU fp32: latents {rel}, loss "
+                             f"{loss_rel}, gradients {grad_rel}, launches {gen_launches} / "
+                             f"{train_launches}")
+    return {name: gen_launches[name] + train_launches[name]
+            for name in ("flash_attention_fwd_f32", "flash_attention_dq_f32",
+                         "flash_attention_dkv_f32")}
 
 
 def phase_train_reference():
@@ -1077,9 +1351,8 @@ def phase_train_reference():
     loss, grads, launches = run(copy.deepcopy(cpu).to("cuda"), "cuda", True)
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
     grad_rel, floor = rel_l2(grads, ref_grads), rel_l2(cpu_grads, ref_grads)
-    expect = {"flash_attention_fwd": n_attn, "flash_attention_dq": n_attn,
-              "flash_attention_dkv": n_attn, "group_norm_silu": n_gn,
-              "skinny_matmul": 0}   # the tiny products have at most 1024 rows
+    expect = all_counts({"flash_attention_fwd": n_attn, "flash_attention_dq": n_attn,
+                         "flash_attention_dkv": n_attn, "group_norm_silu": n_gn})
     finite = bool(np.isfinite(loss) and torch.isfinite(grads).all())
     emit({"phase": "train_reference", "config": "tiny", "dtype": "bfloat16 autocast",
           "loss_cpu_fp32": ref_loss, "loss_cuda_bf16": loss, "loss_rel_diff": loss_rel,
@@ -1175,8 +1448,8 @@ def phase_main_path(model, mm_paths):
     if not finite:
         raise AssertionError("main path latents are not finite")
     # generation runs under inference_mode: the forward kernels alone, no backward
-    want = {"flash_attention_fwd": expect, "flash_attention_dq": 0, "flash_attention_dkv": 0,
-            "group_norm_silu": gn_expect, "skinny_matmul": mm_expect}
+    want = all_counts({"flash_attention_fwd": expect, "group_norm_silu": gn_expect,
+                       "skinny_matmul": mm_expect})
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
     return launches
@@ -1322,9 +1595,9 @@ def phase_serve(model, mm_paths):
         unet, dec = (("serve_unet", "serve_decode") if fills == SERVE_ROWS // 4
                      else ("sampler_unet", "vae_decode"))
         assert 4 * fills == (SERVE_ROWS if unet == "serve_unet" else UNET_BATCH)
-        return {"flash_attention_fwd": steps * 32, "flash_attention_dq": 0,
-                "flash_attention_dkv": 0, "group_norm_silu": steps * n_gn_unet + n_gn_dec,
-                "skinny_matmul": steps * len(mm_paths[unet]) + len(mm_paths[dec])}
+        return all_counts({"flash_attention_fwd": steps * 32,
+                           "group_norm_silu": steps * n_gn_unet + n_gn_dec,
+                           "skinny_matmul": steps * len(mm_paths[unet]) + len(mm_paths[dec])})
 
     def run(req):
         torch.cuda.synchronize()
@@ -1536,9 +1809,9 @@ def phase_unet_grad(model, mm_paths):
           "finite": finite, "kernel_launches": launches})
     del fast, plain, ref
     torch.cuda.empty_cache()
-    want = {"flash_attention_fwd": 32, "flash_attention_dq": 32, "flash_attention_dkv": 32,
-            "group_norm_silu": count_groupnorms(unet),
-            "skinny_matmul": 2 * len(mm_paths["grad_unet"])}   # forward and dx
+    want = all_counts({"flash_attention_fwd": 32, "flash_attention_dq": 32,
+                       "flash_attention_dkv": 32, "group_norm_silu": count_groupnorms(unet),
+                       "skinny_matmul": 2 * len(mm_paths["grad_unet"])})   # forward and dx
     if not (finite and launches == want and fast_ref <= VS_PLAIN * plain_ref):
         raise AssertionError(f"UNet gradient kernel vs plain: vs fp32 {fast_ref} / {plain_ref}, "
                              f"finite {finite}, launches {launches}")
@@ -1680,8 +1953,9 @@ def phase_train(model, mm_paths):
     params_changed = not torch.equal(before, p_after)
     n_gn = count_groupnorms(model.unet)
     n_mm = len(mm_paths["train_unet"])
-    want = {"flash_attention_fwd": 32, "flash_attention_dq": 32, "flash_attention_dkv": 32,
-            "group_norm_silu": n_gn, "skinny_matmul": n_mm + len(mm_paths["train_unet_dx"])}
+    want = all_counts({"flash_attention_fwd": 32, "flash_attention_dq": 32,
+                       "flash_attention_dkv": 32, "group_norm_silu": n_gn,
+                       "skinny_matmul": n_mm + len(mm_paths["train_unet_dx"])})
     seconds = sum(step_ms) / TRAIN_STEPS / 1e3
     emit({"phase": "train", "config": "sd2_base", "recipe": "TrainConfig()",
           "dtype": "fp32 weights, bf16 autocast", "rows_per_step": TRAIN_ROWS,
@@ -1812,7 +2086,8 @@ def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
                    [r for r in main if r[f"{prefix}bound_by"] == "operations"])
     keys = ("site", "shape_bhqkd", calls, f"{prefix}ms", f"{prefix}plain_ms", "library_ms",
             f"{prefix}bound_ms", f"{prefix}bound_by", f"{prefix}max_abs_err")
-    return {"name": name, "route": "cuda", "source": f"difashion_tpu_torch/csrc/{name}.cu",
+    source = extra.pop("source", f"difashion_tpu_torch/csrc/{name}.cu")
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": extra.pop("replaces"), "launches": launches,
             "max_abs_err": max(r[f"{prefix}max_abs_err"] for r in rows),
             "ms": total(f"{prefix}ms"), "plain_ms": total(f"{prefix}plain_ms"),
@@ -1868,21 +2143,32 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
 
 
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
-                 precompute_launches, mm_results, mm_host, serve_launches):
+                 precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
+                 f32_results, bwd_f32_results, f32_launches):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
-    step's; the GroupNorm kernel's as `gn_entry` says, the skinny-N kernel's
-    as `mm_entry` says."""
+    step's; the fp32 kernels' numbers are per sampler UNet forward and per
+    train step in fp32 and their launches the fp32 tiny path's (generation
+    and a training step: `phase_fp32_reference`); the GroupNorm kernel's as
+    `gn_entry` says, the skinny-N kernel's as `mm_entry` says."""
     fwd_rows = [dict(r, ms=r["kernel_ms"]) for r in results]
+    sd15_rows = [dict(r, ms=r["kernel_ms"]) for r in sd15_results]
+    f32_rows = [dict(r, ms=r["kernel_ms"]) for r in f32_results]
     library = ("F.scaled_dot_product_attention's backward, computing dQ, dK and dV "
                "together: the same number on both backward entries")
     pallas = "difashion_tpu/nn/pallas/flash_attention.py:"
+    f32_source = "difashion_tpu_torch/csrc/flash_attention_f32.cu"
+    sd15 = kernel_entry("flash_attention_fwd", sd15_rows, "calls_per_unet_forward", "",
+                        "one sd15 UNet forward, d <= 128", 0, replaces=pallas + "50")
     return {"kernels": [
         kernel_entry("flash_attention_fwd", fwd_rows, "calls_per_unet_forward", "",
                      "one sampler UNet forward", launches["flash_attention_fwd"],
                      replaces=pallas + "50",
-                     train_step_launches=train_launches["flash_attention_fwd"]),
+                     train_step_launches=train_launches["flash_attention_fwd"],
+                     sd15_per_unet_forward={k: sd15[k] for k in
+                                            ("ms", "plain_ms", "bound_ms", "library_ms",
+                                             "per", "shapes")}),
         kernel_entry("flash_attention_dq", bwd_results, "calls_per_train_step", "dq_",
                      "one train step", train_launches["flash_attention_dq"],
                      replaces=pallas + "145", library=library,
@@ -1891,6 +2177,18 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                      "one train step", train_launches["flash_attention_dkv"],
                      replaces=pallas + "191", library=library,
                      main_path_launches=launches["flash_attention_dkv"]),
+        kernel_entry("flash_attention_fwd_f32", f32_rows, "calls_per_unet_forward", "",
+                     "one sampler UNet forward in fp32",
+                     f32_launches["flash_attention_fwd_f32"], replaces=pallas + "50",
+                     source=f32_source, main_path_launches=launches["flash_attention_fwd_f32"]),
+        kernel_entry("flash_attention_dq_f32", bwd_f32_results, "calls_per_train_step", "dq_",
+                     "one train step in fp32", f32_launches["flash_attention_dq_f32"],
+                     replaces=pallas + "145", library=library, source=f32_source,
+                     main_path_launches=launches["flash_attention_dq_f32"]),
+        kernel_entry("flash_attention_dkv_f32", bwd_f32_results, "calls_per_train_step", "dkv_",
+                     "one train step in fp32", f32_launches["flash_attention_dkv_f32"],
+                     replaces=pallas + "191", library=library, source=f32_source,
+                     main_path_launches=launches["flash_attention_dkv_f32"]),
         gn_entry(gn_results, launches, train_launches, precompute_launches),
         mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
                  serve_launches),
@@ -1914,7 +2212,10 @@ def main():
     sites = main_path_attention_sites(cfg, UNET_BATCH)
     if sum(c for *_, c in sites) != 32:
         raise AssertionError(f"expected 32 attentions per UNet forward, got {sites}")
-    results = phase_kernel(sites)
+    sd15_sites = [s for s in main_path_attention_sites(ModelConfig.sd15(), UNET_BATCH)
+                  if s[5] <= 128]
+    results, sd15_results, f32_results = phase_kernel(sites, sd15_sites)
+    phase_sd15_unet()
     gn_results = phase_kernel_gn(groupnorm_sites(cfg))
     mm_paths = dense_sites(cfg)
     mm_results, mm_host = phase_kernel_mm(mm_paths)
@@ -1930,15 +2231,20 @@ def main():
     # the training path, after the generation path: a backward leaves buffers
     # of its own (the autograd thread's cuBLAS workspace) that would count in
     # the main path's peak memory
-    bwd_results = phase_kernel_bwd(main_path_attention_sites(cfg, TRAIN_ROWS))
+    sd15_train_sites = [s for s in main_path_attention_sites(ModelConfig.sd15(), TRAIN_ROWS)
+                        if s[5] <= 128]
+    bwd_results, bwd_f32_results, _ = phase_kernel_bwd(
+        main_path_attention_sites(cfg, TRAIN_ROWS), sd15_train_sites)
     phase_train_reference()
+    f32_launches = phase_fp32_reference()
     # fp32 master weights under bf16 autocast
     model = create_difashion(cfg, seed=0, device="cuda").prepare_for_training()
     phase_unet_grad(model, mm_paths)
     train_launches = phase_train(model, mm_paths)
     phase_profile_train(model)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
-                      precompute_launches, mm_results, mm_host, serve_launches))
+                      precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
+                      f32_results, bwd_f32_results, f32_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

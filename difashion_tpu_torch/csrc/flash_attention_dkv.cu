@@ -97,6 +97,11 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = kv0 + warp * 16 + g;
   const int rows[2] = {r0, r0 + 8};
 
+  // K and V fragments stay in registers for the whole query loop, but at
+  // D = 128 (sd15's d = 80 is padded to it) those 64 registers beside the
+  // 128 of dK and dV made ptxas spill: there they are read from the shared
+  // tiles one k-step at a time
+  constexpr bool kFragsInRegs = D < 128;
   uint32_t ka[D / 16][4], va[D / 16][4];
   float dk_acc[NT_D][4] = {};
   float dv_acc[NT_D][4] = {};
@@ -118,7 +123,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    if (i == 0) {
+    if (kFragsInRegs && i == 0) {
       load_a_frags<T, D>(ka, sK + warp * 16 * LD, g, t);
       load_a_frags<T, D>(va, sV + warp * 16 * LD, g, t);
     }
@@ -130,8 +135,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 KV rows x 64 query columns.
     float s[NT_Q][4] = {};
     float dp[NT_Q][4] = {};
-    mma_rows_t<T, D>(s, ka, qt, g, t);
-    mma_rows_t<T, D>(dp, va, dot, g, t);
+    if constexpr (kFragsInRegs) {
+      mma_rows_t<T, D>(s, ka, qt, g, t);
+      mma_rows_t<T, D>(dp, va, dot, g, t);
+    } else {
+      mma_rows_t_smem<T, D>(s, sK + warp * 16 * LD, qt, g, t);
+      mma_rows_t_smem<T, D>(dp, sV + warp * 16 * LD, dot, g, t);
+    }
 
     // P^T and dS^T; the LSE and D of a column come from the shared tile.
     const int q0 = i * kTile;

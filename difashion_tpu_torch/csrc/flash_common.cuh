@@ -150,6 +150,30 @@ __device__ __forceinline__ void mma_rows_t(float (&acc)[kTile / 8][4],
   }
 }
 
+// The same product with the A fragments read from `arows` (a warp's 16 rows
+// of a padded shared tile) one k-step at a time: 4 registers live instead of
+// D / 4, for a kernel whose registers are tight. Each accumulator sums its
+// k-steps in the same order as mma_rows_t: the results are identical.
+template <typename T, int D>
+__device__ __forceinline__ void mma_rows_t_smem(float (&acc)[kTile / 8][4], const T* arows,
+                                                const T* tile, int g, int t) {
+  constexpr int LD = D + kPad;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks * 16 + 2 * t;
+    const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(arows + g * LD + c),
+                           *reinterpret_cast<const uint32_t*>(arows + (g + 8) * LD + c),
+                           *reinterpret_cast<const uint32_t*>(arows + g * LD + c + 8),
+                           *reinterpret_cast<const uint32_t*>(arows + (g + 8) * LD + c + 8)};
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n) {
+      const T* r = tile + (n * 8 + g) * LD + 2 * t + ks * 16;
+      MmaOp<T>::run(acc[n], a, *reinterpret_cast<const uint32_t*>(r),
+                    *reinterpret_cast<const uint32_t*>(r + 8));
+    }
+  }
+}
+
 // A fragment for k-step kk of a product over kTile columns, from the fp32 C
 // fragments of column tiles 2kk and 2kk+1, rounded to T.
 template <typename T>

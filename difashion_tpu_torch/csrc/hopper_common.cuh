@@ -1,18 +1,20 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels:
-// the skinny-N matmul now, the flash-attention forward's redesign next.
+// the skinny-N matmul and the flash-attention forward.
 //
-//   - TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled,
-//     reached from the runtime (cudaGetDriverEntryPoint*), so that the
-//     libraries link nothing but the runtime;
-//   - the copies: cp.async.bulk.tensor loads into shared memory, completed on
-//     an mbarrier, and stores from shared memory in bulk groups;
+//   - TMA tensor maps (2-D, and 4-D with any strides), encoded on the host by
+//     cuTensorMapEncodeTiled, reached from the runtime
+//     (cudaGetDriverEntryPoint*), so that the libraries link nothing but the
+//     runtime;
+//   - the copies: cp.async.bulk.tensor loads (2-D, 4-D) into shared memory,
+//     completed on an mbarrier, and stores from shared memory in bulk groups;
 //   - the barriers: mbarrier init, arrive, arrive-expect-tx and try-wait on
 //     a phase parity (with a watchdog that traps rather than hang the card
 //     when a phase never completes, and a plain spin for tight code);
 //   - wgmma: shared-memory descriptors for 128-byte-swizzled tiles, the
-//     fence / commit / wait, and mma_async m64nNk16 (N = 128, 160, 256) with
-//     both operands in shared memory, fp32 accumulators and B either K-major
-//     or MN-major (the instruction's transpose bit);
+//     fence / commit / wait, and mma_async m64nNk16 with fp32 accumulators and
+//     B either K-major or MN-major (the instruction's transpose bit): A in
+//     shared memory (SS; N = 128, 160, 176, 256) or in registers (RS;
+//     N = 64, 128);
 //   - fence.proxy.async, named barriers and setmaxnreg.
 //
 // Descriptor conventions (128-byte swizzle, 16-bit elements; a tile's base
@@ -95,6 +97,33 @@ inline int encode_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - int(r);
 }
 
+// A 4-D map of a tensor of 16-bit elements whose innermost dimension is
+// contiguous: dims[0..3] innermost first, strides[0..2] the element strides of
+// dims 1..3 (each a multiple of 8 elements: TMA takes strides in multiples of
+// 16 bytes), read or written in boxes of box[0..3] elements. The flash
+// forward's maps are over (D, H, S, B) of a [B, H, S, D] view with its own
+// strides (the projections' [B, S, H, D] memory, read in place), in boxes of
+// 64 columns x 1 head x a row tile x 1. Elements outside the tensor load as
+// zeros and are not stored: past a ragged sequence's end, and past the head
+// dim when the box (64 columns) is wider than it. Returns 0 or an error above.
+template <typename T>
+inline int encode_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                     const int64_t (&strides)[3], const uint32_t (&box)[4],
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t gdims[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t gstrides[3] = {cuuint64_t(strides[0]) * sizeof(T),
+                                  cuuint64_t(strides[1]) * sizeof(T),
+                                  cuuint64_t(strides[2]) * sizeof(T)};
+  const cuuint32_t gbox[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, tensor_map_type<T>(), 4, const_cast<void*>(base), gdims, gstrides,
+                        gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - int(r);
+}
+
 // ---- device: addresses, barriers, copies ---------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -160,6 +189,22 @@ __device__ __forceinline__ void mbar_spin_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// A watched wait on a 32-bit clock (the low word of the global timer): one
+// register of state where mbar_wait keeps two, for consumers whose registers
+// are tight. Traps after 2^31 ns (2.1 s); the wrap of the low word every
+// 4.3 s cancels in the unsigned difference.
+__device__ __forceinline__ void mbar_wait_lo(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  uint32_t start;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;\n" : "=r"(start));
+  while (!mbar_try_wait(addr, parity)) {
+    uint32_t now;
+    asm volatile("mov.u32 %0, %%globaltimer_lo;\n" : "=r"(now));
+    if (now - start > 0x80000000u) __trap();
+  }
+}
+
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map))
                : "memory");
@@ -183,6 +228,27 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
   asm volatile(
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Load the box at coordinates (c0, c1, c2, c3) of a 4-D map, innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Store the box at coordinates (c0, c1, c2, c3) of a 4-D map from src.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
       : "memory");
 }
 
@@ -210,6 +276,12 @@ __device__ __forceinline__ void fence_proxy_async_shared() {
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Signals arrival at named barrier `id` without waiting (the other side waits
+// with bar.sync on the same id and thread count).
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 template <int R>
@@ -253,76 +325,141 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// The same for 32-bit operand registers (an A fragment read by wgmma from
+// registers: kept live and unmoved until the wgmma that reads it is waited for).
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
 #define HOPPER_D8(i)                                                                       \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
-#define HOPPER_WGMMA_N128(TY) \
+#define HOPPER_WGMMA_SS_N128(TY) \
   asm volatile( \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
       "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63" \
       "}, %64, %65, p, 1, 1, 0, %67;\n}\n" \
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), \
-        HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56) \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56) \
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
 
-#define HOPPER_WGMMA_N160(TY) \
+#define HOPPER_WGMMA_SS_N160(TY) \
   asm volatile( \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n" \
       "wgmma.mma_async.sync.aligned.m64n160k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, " \
+      "%74, %75, %76, %77, %78, %79" \
       "}, %80, %81, p, 1, 1, 0, %83;\n}\n" \
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), \
-        HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72) \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72) \
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
 
-#define HOPPER_WGMMA_N256(TY) \
+#define HOPPER_WGMMA_SS_N176(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n176k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, " \
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87" \
+      "}, %88, %89, p, 1, 1, 0, %91;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
+#define HOPPER_WGMMA_SS_N256(TY) \
   asm volatile( \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
       "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, " \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, " \
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, " \
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, " \
       "%123, %124, %125, %126, %127" \
       "}, %128, %129, p, 1, 1, 0, %131;\n}\n" \
-      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), \
-        HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72), \
-        HOPPER_D8(80), HOPPER_D8(88), HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), \
-        HOPPER_D8(120) \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56), HOPPER_D8(64), HOPPER_D8(72), HOPPER_D8(80), HOPPER_D8(88), \
+        HOPPER_D8(96), HOPPER_D8(104), HOPPER_D8(112), HOPPER_D8(120) \
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
+#define HOPPER_WGMMA_RS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB))
+
+#define HOPPER_WGMMA_RS_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40), \
+        HOPPER_D8(48), HOPPER_D8(56) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB))
 
 // d (+)= A . B for a 64 x 16 A and a 16 x N B, both in shared memory (descriptors
 // a, b); scale_d = 0 overwrites d. kTransB = 1: B is MN-major.
 template <typename T, int N, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                                          int scale_d) {
-  static_assert(N == 128 || N == 160 || N == 256, "wgmma_ss: N is 128, 160 or 256");
+  static_assert(N == 128 || N == 160 || N == 176 || N == 256,
+                "wgmma_ss: N is 128, 160, 176 or 256");
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   if constexpr (N == 128) {
-    if constexpr (bf16) HOPPER_WGMMA_N128("bf16"); else HOPPER_WGMMA_N128("f16");
+    if constexpr (bf16) HOPPER_WGMMA_SS_N128("bf16"); else HOPPER_WGMMA_SS_N128("f16");
   } else if constexpr (N == 160) {
-    if constexpr (bf16) HOPPER_WGMMA_N160("bf16"); else HOPPER_WGMMA_N160("f16");
+    if constexpr (bf16) HOPPER_WGMMA_SS_N160("bf16"); else HOPPER_WGMMA_SS_N160("f16");
+  } else if constexpr (N == 176) {
+    if constexpr (bf16) HOPPER_WGMMA_SS_N176("bf16"); else HOPPER_WGMMA_SS_N176("f16");
   } else {
-    if constexpr (bf16) HOPPER_WGMMA_N256("bf16"); else HOPPER_WGMMA_N256("f16");
+    if constexpr (bf16) HOPPER_WGMMA_SS_N256("bf16"); else HOPPER_WGMMA_SS_N256("f16");
   }
 }
 
-#undef HOPPER_WGMMA_N128
-#undef HOPPER_WGMMA_N160
-#undef HOPPER_WGMMA_N256
+// d (+)= A . B with A (64 x 16) from registers: four 32-bit registers a thread
+// holding pairs of T in the mma.sync m16n8k16 A-fragment layout, warp w
+// supplying rows 16w..16w+15 (the layout of a 16-column slice of an fp32
+// accumulator rounded to pairs); B (16 x N) in shared memory (descriptor b).
+template <typename T, int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (N == 64) {
+    if constexpr (bf16) HOPPER_WGMMA_RS_N64("bf16"); else HOPPER_WGMMA_RS_N64("f16");
+  } else {
+    if constexpr (bf16) HOPPER_WGMMA_RS_N128("bf16"); else HOPPER_WGMMA_RS_N128("f16");
+  }
+}
+
+#undef HOPPER_WGMMA_SS_N128
+#undef HOPPER_WGMMA_SS_N160
+#undef HOPPER_WGMMA_SS_N176
+#undef HOPPER_WGMMA_SS_N256
+#undef HOPPER_WGMMA_RS_N64
+#undef HOPPER_WGMMA_RS_N128
 #undef HOPPER_D8
 
 }  // namespace hopper

@@ -2,20 +2,22 @@
 transformer modules around it. Counterparts of `difashion_tpu/nn/attention.py`.
 
 Routing of `sdpa` on CUDA:
-  * head dim <= 128 in the kernel's set (16/32/64/128), bf16/fp16: the
-    hand-written kernels (every UNet self- and cross-attention). While
-    autograd records (q, k or v requires grad), through `FlashAttention`:
-    the forward kernel, then the dQ and dK/dV kernels in the backward. Under
-    `no_grad` / `inference_mode` the forward kernel alone, which saves
-    nothing;
-  * head dim > 128 (the VAE mid-attention, d = 512, once per decode): plain
-    matmul + softmax, as the JAX package computes it outside Pallas;
-  * anything else (fp32, d = 40/80 of sd15) raises NotImplementedError until
-    its slice.
-On the CPU the kernels' plain versions stand in for them (the wrappers decide
-that from the tensor's device). While `kernels.plain_versions()` is open a
-call goes, forward and backward, through the plain versions on any device; it
-exists so a run can hold the kernel path against it.
+  * head dim <= 128, bf16, fp16 or fp32: the hand-written kernels (every
+    UNet self- and cross-attention, sd2's d = 64 and sd15's 40 and 80 alike;
+    fp32 through the fp32 kernels), as the JAX package's gate sends every
+    d <= 128 of any dtype to its Pallas kernel. While autograd records (q, k
+    or v requires grad), through `FlashAttention`: the forward kernel, then
+    the dQ and dK/dV kernels in the backward. Under `no_grad` /
+    `inference_mode` the forward kernel alone, which saves nothing;
+  * head dim > 128 (the VAE mid-attention, d = 512, once per decode; sd15's
+    d = 160): plain matmul + softmax, as the JAX package computes it outside
+    Pallas.
+A kernel that does not build or launch raises; nothing gives way to a plain
+version. On the CPU the kernels' plain versions stand in for them (the
+wrappers decide that from the tensor's device). While
+`kernels.plain_versions()` is open a call goes, forward and backward, through
+the plain versions on any device; it exists so a run can hold the kernel path
+against it.
 
 The residual adds put the residual first (`x + h`): an add takes the memory
 layout of its first operand, and the [B, S, C] -> NCHW view of the
@@ -32,14 +34,12 @@ from torch import nn
 
 from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.kernels.flash_attention import (
-    HEAD_DIMS,
+    MAX_HEAD_DIM,
     FlashAttention,
     flash_attention,
     flash_attention_ref,
 )
 from difashion_tpu_torch.nn.layers import Dense, FeedForward, GroupNorm
-
-_KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _plain_sdpa(q, k, v, scale):
@@ -57,12 +57,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if d > 128:
+    if d > MAX_HEAD_DIM:
         return _plain_sdpa(q, k, v, scale)
-    if not (plain or q.device.type == "cpu"
-            or (d in HEAD_DIMS and q.dtype in _KERNEL_DTYPES)):
-        raise NotImplementedError(
-            f"sdpa on CUDA: no kernel yet for head dim {d}, dtype {q.dtype}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, scale, plain)

@@ -6,9 +6,10 @@ with a plain C interface at first use (into `difashion_tpu_torch/_build/`,
 keyed by the hash of the source and the headers) and loaded with `ctypes`. Nothing here is compiled or loaded at import time, so
 the package imports on machines without a GPU or a CUDA toolkit.
 
-`LAUNCHES` counts, per kernel, the launches its wrapper has made. A run resets
-it with `reset_launches()` and reads it afterwards to show which kernels a
-path went through.
+`LAUNCHES` counts, per kernel, the launches its wrapper has made (the fp32
+flash source's three kernels under names of their own, so that the 16-bit
+counts of a path stay exact). A run resets it with `reset_launches()` and
+reads it afterwards to show which kernels a path went through.
 
 `plain_versions()` is the one switch between the kernels and their plain
 PyTorch versions: while it is open, the kernels' callers (`nn.attention.sdpa`,
@@ -34,8 +35,11 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-           "group_norm_silu", "skinny_matmul")
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+           "flash_attention_f32", "group_norm_silu", "skinny_matmul")
+COUNTERS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+            "flash_attention_fwd_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32",
+            "group_norm_silu", "skinny_matmul")
+LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -80,14 +84,16 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> Tuple[Path, str]:
-    """Compile `csrc/<name>.cu` for sm_90a unless a library built from the same
-    source exists. Returns (library path, compiler log: ptxas register and
-    spill report, empty when the library was already built)."""
+def build(name: str, defines: Tuple[str, ...] = ()) -> Tuple[Path, str]:
+    """Compile `csrc/<name>.cu` for sm_90a (with `-D` of each of `defines`)
+    unless a library built from the same source and defines exists. Returns
+    (library path, compiler log: ptxas register and spill report, empty when
+    the library was already built)."""
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(repr(defines).encode())
     digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
@@ -97,7 +103,7 @@ def build(name: str) -> Tuple[Path, str]:
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(src),
+        *(f"-D{d}" for d in defines), "-o", str(tmp), str(src),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

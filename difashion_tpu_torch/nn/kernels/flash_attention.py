@@ -4,16 +4,27 @@ plain versions, and the autograd Function over both.
 Ports of `difashion_tpu/nn/pallas/flash_attention.py`:
   * `_fwd_kernel` (through `_forward`) -> `csrc/flash_attention_fwd.cu`:
     non-causal attention with an online softmax in fp32, bf16/fp16 operands
-    on the tensor cores, ragged KV masked in the kernel. Returns O in the input
-    dtype and the per-row natural-log LSE in fp32 as [B*H, Sq].
+    on the tensor cores (TMA, wgmma, warp specialisation), ragged KV masked
+    in the kernel. Returns O in the input dtype and the per-row natural-log
+    LSE in fp32 as [B*H, Sq].
   * `_dq_kernel` (through `_backward`) -> `csrc/flash_attention_dq.cu`:
     dQ = scale * [P * (dO V^T - D)] K with P recomputed from the LSE.
   * `_dkv_kernel` (through `_backward`) -> `csrc/flash_attention_dkv.cu`:
     dV = P^T dO and dK = scale * [P * (dO V^T - D)]^T Q.
+  * all three for fp32 inputs -> `csrc/flash_attention_f32.cu` (SIMT FFMA,
+    no tf32, no 16-bit rounding), counted as `flash_attention_fwd_f32`,
+    `flash_attention_dq_f32` and `flash_attention_dkv_f32`.
 D = rowsum(dO * O) is plain torch in fp32 (`attention_delta`), as the JAX
 package leaves it to XLA. `FlashAttention` is the counterpart of the
 `_flash_core` custom VJP: its forward saves q, k, v, o and the LSE, its
 backward runs the two backward kernels.
+
+Every head dim up to 128 runs on the kernels, in bf16, fp16 and fp32, as the
+Pallas kernel takes any d <= 128. `kernel_head_dim` works out, in one place,
+what the kernels are handed for a head dim d (`pad_head_dim` makes the
+zero-padded copies): zero columns of Q, K, V and dO leave S, dP, D and the
+kept columns of O, dQ, dK and dV exactly as they were, and the scale stays
+1/sqrt(d) of the unpadded d.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take. For CPU tensors it computes its plain version
@@ -35,8 +46,50 @@ from difashion_tpu_torch.nn import kernels
 NAME = "flash_attention_fwd"
 DQ_NAME = "flash_attention_dq"
 DKV_NAME = "flash_attention_dkv"
-HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
+F32_SOURCE = "flash_attention_f32"     # the fp32 kernels' source; each counts as <name>_f32
+MAX_HEAD_DIM = 128
+FWD_HEAD_DIMS = (64, 128)              # the forward kernel's padded head dims (TMA zero fill)
+BWD_HEAD_DIMS = (16, 32, 64, 128)      # the mma.sync backward kernels' instantiations
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def kernel_head_dim(d: int, dtype: torch.dtype, backward: bool = False) -> int:
+    """The head dim the kernels are handed for a true head dim d <= 128:
+      * fp32: d (the SIMT kernels take any d, padding their tiles in place);
+      * the 16-bit forward: d where d % 8 == 0, read in place (the kernel's
+        TMA boxes are 64 columns wide and zero-fill up to 64 or 128); any
+        other d rounded up to a multiple of 8 (a padded copy: TMA takes
+        strides in multiples of 16 bytes);
+      * the 16-bit backward: the smallest of BWD_HEAD_DIMS >= d (a padded
+        copy unless d is one of them): d = 40 -> 64, 80 -> 128 for sd15.
+    """
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} not in 1..{MAX_HEAD_DIM}")
+    if dtype == torch.float32:
+        return d
+    if backward:
+        return next(p for p in BWD_HEAD_DIMS if p >= d)
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """t [B, H, S, d] zero-padded to [B, H, S, dp], a copy whose memory is
+    [B, S, H, dp] (the projections' layout); t itself when dp == d."""
+    b, h, s, d = t.shape
+    if dp == d:
+        return t
+    out = torch.zeros(b, s, h, dp, dtype=t.dtype, device=t.device)
+    out[..., :d] = t.transpose(1, 2)
+    return out.transpose(1, 2)
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The first d columns of a kernel's padded output, copied into [B, S, H, d]
+    memory as `_empty_bshd` lays it out; t itself when it has d columns."""
+    if t.shape[-1] == d:
+        return t
+    b, h, s, _ = t.shape
+    return _empty_bshd(b, h, s, d, t).copy_(t[..., :d])
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,7 +164,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: q, k, v must lie on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention: bf16 or fp16 q/k/v of one dtype, got "
+            f"flash_attention: bf16, fp16 or fp32 q/k/v of one dtype, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, H, S, D]")
@@ -120,45 +173,67 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    kernel_head_dim(d, q.dtype)   # raises for a head dim no kernel takes
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash_attention: empty sequence")
     if b * h > 65535:
         raise ValueError(f"flash_attention: B*H = {b * h} exceeds the grid limit")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _strides_ok(t):
-            raise ValueError(
-                f"flash_attention: {name} strides {t.stride()} / alignment "
-                "not supported (last dim contiguous, others multiples of 8)")
 
 
-def _strides_ok(t: torch.Tensor) -> bool:
-    """The kernels copy rows in 16-byte vectors: last dim contiguous, every
-    other stride a multiple of 8 elements, a 16-byte aligned base."""
-    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+def _layout_ok(t: torch.Tensor) -> bool:
+    """What the kernels read in place: the last dim contiguous; for 16-bit
+    tensors (TMA, 16-byte vectors) also every other stride of a dim longer
+    than 1 a multiple of 8 elements and a 16-byte aligned base."""
+    if t.stride(3) != 1 and t.shape[3] > 1:
+        return False
+    if t.dtype == torch.float32:
+        return True
+    return all(s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1) \
         and t.data_ptr() % 16 == 0
 
 
-def _lib(name: str, nargs_ptr: int, nargs_int: int) -> ctypes.CDLL:
-    """The kernel's library with its C function's argument types set: the
-    pointers, the ints, then strides, scale, dtype and stream."""
-    lib = kernels.load(name)
-    fn = getattr(lib, name)
+def _kernel_inputs(tensors, dp: int):
+    """The tensors as the kernel reads them: zero-padded copies to dp columns,
+    or the tensors themselves, which must then be laid out as `_layout_ok`
+    says."""
+    out = tuple(pad_head_dim(t, dp) for t in tensors)
+    for t in out:
+        if not _layout_ok(t):
+            raise ValueError(
+                f"flash_attention: strides {t.stride()} / alignment not supported "
+                "(last dim contiguous; in 16 bits the others multiples of 8)")
+    return out
+
+
+def _fn(source: str, name: str, nargs_ptr: int, nargs_int: int):
+    """C function `name` of the library built from `csrc/<source>.cu`, its
+    argument types set: the pointers, the ints, then strides, scale, dtype and
+    stream."""
+    fn = getattr(kernels.load(source), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * nargs_ptr + [ctypes.c_int] * nargs_int + [
             ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _strides(strided):
+    """(batch, head, seq) element strides of each tensor; a dim of length 1
+    gets 8 (any multiple of 8 does: its only coordinate is 0)."""
+    return [t.stride(i) if t.shape[i] > 1 else 8 for t in strided for i in range(3)]
 
 
 def _launch(name: str, tensors, ints, strided, scale: float, dtype) -> None:
-    """Call kernel `name` on the current stream with the data pointers of
-    `tensors`, the ints, and the (batch, head, seq) element strides of the
-    `strided` tensors; raise on a launch error; count the launch."""
-    strides = [s for t in strided for s in t.stride()[:3]]
+    """Call kernel `name` (its fp32 counterpart `<name>_f32` for fp32) on the
+    current stream with the data pointers of `tensors`, the ints, and the
+    (batch, head, seq) element strides of the `strided` tensors; raise on a
+    launch error; count the launch."""
+    source = name
+    if dtype == torch.float32:
+        source, name = F32_SOURCE, f"{name}_f32"
+    strides = _strides(strided)
     st = (ctypes.c_int64 * len(strides))(*strides)
-    fn = getattr(_lib(name, len(tensors), len(ints)), name)
+    fn = _fn(source, name, len(tensors), len(ints))
     dev = tensors[0].device
     with torch.cuda.device(dev):
         rc = fn(*(t.data_ptr() for t in tensors), *ints, ctypes.addressof(st),
@@ -178,24 +253,30 @@ def _empty_bshd(b: int, h: int, s: int, d: int, like: torch.Tensor) -> torch.Ten
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Non-causal attention. q [B, H, Sq, D], k/v [B, H, Skv, D], any strides
-    with a contiguous last dim (so the [B, S, H, D] view of a projection is
-    read in place). Returns (o, lse): o [B, H, Sq, D] in q's dtype, laid out
-    as [B, Sq, H, D] in memory; lse [B*H, Sq] fp32, natural log."""
+    """Non-causal attention. q [B, H, Sq, D], k/v [B, H, Skv, D], D <= 128,
+    bf16, fp16 or fp32, any strides with a contiguous last dim (so the
+    [B, S, H, D] view of a projection is read in place). Returns (o, lse): o
+    [B, H, Sq, D] in q's dtype, laid out as [B, Sq, H, D] in memory; lse
+    [B*H, Sq] fp32, natural log. The scale defaults to 1/sqrt(D)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale)
     _check(q, k, v)
     b, h, sq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    o = _empty_bshd(b, h, sq, d, q)
+    dp = kernel_head_dim(d, q.dtype)
+    qp, kp, vp = _kernel_inputs((q, k, v), dp)
+    o = _empty_bshd(b, h, sq, dp, q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
-    _launch(NAME, (q, k, v, o, lse), (b, h, sq, k.shape[2], d), (q, k, v, o),
+    _launch(NAME, (qp, kp, vp, o, lse), (b, h, sq, k.shape[2], dp), (qp, kp, vp, o),
             scale, q.dtype)
-    return o, lse
+    return _unpad(o, d), lse
 
 
 def _bwd_inputs(q, k, v, do, lse, delta):
+    """q, k, v and dO as the backward kernels read them (padded to the head
+    dim `kernel_head_dim` gives, dO made contiguous where autograd handed it
+    in strides the kernels do not take)."""
     _check(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"flash_attention backward: dO {tuple(do.shape)} "
@@ -206,8 +287,10 @@ def _bwd_inputs(q, k, v, do, lse, delta):
                 or t.device != q.device:
             raise ValueError(f"flash_attention backward: {name} must be a contiguous "
                              f"fp32 {want} tensor on q's device")
-    # dO comes from autograd in whatever strides it has
-    return do if _strides_ok(do) else do.contiguous()
+    dp = kernel_head_dim(q.shape[3], q.dtype, backward=True)
+    if dp == q.shape[3] and not _layout_ok(do):
+        do = do.contiguous()
+    return _kernel_inputs((q, k, v, do), dp)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
@@ -215,12 +298,12 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     LSE and D = `attention_delta(o, do)`, both [B*H, Sq] fp32."""
     if q.device.type == "cpu":
         return flash_attention_dq_ref(q, k, v, do, lse, delta, scale)
-    do = _bwd_inputs(q, k, v, do, lse, delta)
-    b, h, sq, d = q.shape
-    dq = _empty_bshd(b, h, sq, d, q)
-    _launch(DQ_NAME, (q, k, v, do, lse, delta, dq), (b, h, sq, k.shape[2], d),
-            (q, k, v, do, dq), scale, q.dtype)
-    return dq
+    qp, kp, vp, dop = _bwd_inputs(q, k, v, do, lse, delta)
+    b, h, sq, dp = qp.shape
+    dq = _empty_bshd(b, h, sq, dp, q)
+    _launch(DQ_NAME, (qp, kp, vp, dop, lse, delta, dq), (b, h, sq, k.shape[2], dp),
+            (qp, kp, vp, dop, dq), scale, q.dtype)
+    return _unpad(dq, q.shape[3])
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, scale: float
@@ -228,13 +311,14 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale: float
     """(dK, dV) [B, H, Skv, D] in the input dtype (memory [B, Skv, H, D])."""
     if q.device.type == "cpu":
         return flash_attention_dkv_ref(q, k, v, do, lse, delta, scale)
-    do = _bwd_inputs(q, k, v, do, lse, delta)
-    b, h, sq, d = q.shape
+    qp, kp, vp, dop = _bwd_inputs(q, k, v, do, lse, delta)
+    b, h, sq, dp = qp.shape
     skv = k.shape[2]
-    dk, dv = _empty_bshd(b, h, skv, d, k), _empty_bshd(b, h, skv, d, v)
-    _launch(DKV_NAME, (q, k, v, do, lse, delta, dk, dv), (b, h, sq, skv, d),
-            (q, k, v, do, dk, dv), scale, q.dtype)
-    return dk, dv
+    dk, dv = _empty_bshd(b, h, skv, dp, k), _empty_bshd(b, h, skv, dp, v)
+    _launch(DKV_NAME, (qp, kp, vp, dop, lse, delta, dk, dv), (b, h, sq, skv, dp),
+            (qp, kp, vp, dop, dk, dv), scale, q.dtype)
+    d = q.shape[3]
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: Optional[float] = None

@@ -1,5 +1,6 @@
-"""The CUDA kernels (flash-attention forward, dQ, dK/dV; GroupNorm + SiLU;
-the skinny-N matmul) against their plain versions, on the card.
+"""The CUDA kernels (flash-attention forward, dQ, dK/dV in 16 bits and in fp32;
+GroupNorm + SiLU; the skinny-N matmul) against their plain versions, on the
+card, with TF32 off.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with the CUDA toolkit, is
 marked `cuda`, and skips elsewhere. The module imports torch only (no JAX), so
@@ -37,6 +38,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -55,6 +57,8 @@ SHAPES = [
     (1, 2, 77, 77, 64),
     (2, 3, 130, 77, 16),     # the tiny config's head dim
     (1, 2, 200, 300, 128),
+    (1, 2, 200, 77, 40),     # sd15's head dims: the forward pads them by TMA's
+    (2, 1, 130, 300, 80),    # zero fill, the backward by a zero-padded copy
 ]
 
 
@@ -88,6 +92,45 @@ def test_strided_views_and_launch_count(dev):
     assert o.transpose(1, 2).is_contiguous()
 
 
+def _proj(b, s, h, d, dtype, dev, seed):
+    """The [B, H, S, D] view of a [B, S, H*D] projection, as the UNet's
+    attention hands it over."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, h * d, generator=g, device=dev).to(dtype)
+    return x.view(b, s, h, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq,skv", [(200, 77), (333, 130)])
+def test_forward_head_dims_on_strided_views(dev, d, dtype, sq, skv):
+    """Every head dim the forward takes (d % 8 == 0 read in place, the kernel
+    padding to 64 or 128 with TMA's zero fill), ragged Sq and Skv, the
+    projections' strided views: against the plain version, O laid out as
+    [B, S, H, D], the scale that of the unpadded d."""
+    b, h = 2, 3
+    q, k, v = (_proj(b, s, h, d, dtype, dev, seed) for s, seed in ((sq, 1), (skv, 2), (skv, 3)))
+    kernels.reset_launches()
+    o, lse = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 1
+    ro, rlse = flash_attention_ref(q, k, v)
+    err = (o.float() - ro.float()).abs()
+    assert err.max().item() <= 3e-2 and err.mean().item() <= 3e-3
+    np.testing.assert_allclose(lse.cpu().numpy(), rlse.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    assert o.dtype == dtype and o.shape == (b, h, sq, d) and o.transpose(1, 2).is_contiguous()
+
+
+def test_forward_head_dim_not_a_multiple_of_8(dev):
+    """d = 20 goes through the wrapper's zero-padded copy to 24."""
+    q, k, v = _qkv(2, 3, 100, 77, 20, torch.bfloat16, dev, seed=6)
+    o, lse = flash_attention(q, k, v)
+    ro, rlse = flash_attention_ref(q, k, v)
+    assert (o.float() - ro.float()).abs().max().item() <= 3e-2
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    assert o.shape == q.shape and o.transpose(1, 2).is_contiguous()
+
+
 def test_sdpa_routes(dev):
     q, k, v = _qkv(2, 2, 128, 77, 64, torch.bfloat16, dev)
     kernels.reset_launches()
@@ -101,21 +144,30 @@ def test_sdpa_routes(dev):
     wq, wk, wv = _qkv(1, 1, 64, 64, 512, torch.bfloat16, dev)
     sdpa(wq, wk, wv)
     assert kernels.LAUNCHES["flash_attention_fwd"] == 1
-    with pytest.raises(NotImplementedError):
-        sdpa(q.float(), k.float(), v.float())
+    # fp32 goes to the fp32 kernel, sd15's d = 80 to the forward kernel
+    sdpa(q.float(), k.float(), v.float())
+    assert kernels.LAUNCHES["flash_attention_fwd_f32"] == 1
     fq, fk, fv = _qkv(1, 1, 64, 64, 80, torch.bfloat16, dev)
-    with pytest.raises(NotImplementedError):
-        sdpa(fq, fk, fv)
+    sdpa(fq, fk, fv)
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 2
+    assert kernels.LAUNCHES["flash_attention_fwd_f32"] == 1
 
 
 def test_wrapper_rejects(dev):
     q, k, v = _qkv(1, 1, 64, 64, 64, torch.bfloat16, dev)
     with pytest.raises(TypeError):
-        flash_attention(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError):
-        flash_attention(q[..., :48], k[..., :48], v[..., :48])
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.float(), v)
     with pytest.raises(ValueError):
         flash_attention(q, k[:, :, :, :32], v)
+    wq, wk, wv = _qkv(1, 1, 64, 64, 136, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        flash_attention(wq, wk, wv)                       # head dim above 128
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(2, 3), k, v)          # last dim not contiguous
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :, :, 4:60], k[:, :, :, 4:60], v[:, :, :, 4:60])  # 8-byte base
 
 
 def _rel(a, b):
@@ -176,8 +228,9 @@ def test_sdpa_autograd_routes_through_the_kernels(dev):
     out = sdpa(q, k, v)
     out.backward(do)
     assert dict(kernels.LAUNCHES) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
-                                      "flash_attention_dkv": 1, "group_norm_silu": 0,
-                                      "skinny_matmul": 0}
+                                      "flash_attention_dkv": 1, "flash_attention_fwd_f32": 0,
+                                      "flash_attention_dq_f32": 0, "flash_attention_dkv_f32": 0,
+                                      "group_norm_silu": 0, "skinny_matmul": 0}
     grads = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -190,6 +243,162 @@ def test_sdpa_autograd_routes_through_the_kernels(dev):
     with torch.no_grad():
         assert sdpa(q, k, v).grad_fn is None
     assert kernels.LAUNCHES["flash_attention_dq"] == 1
+
+
+# ---- fp32 flash attention ----------------------------------------------------
+
+F32_SHAPES = [
+    (1, 2, 256, 256, 64),
+    (1, 2, 256, 77, 64),     # ragged cross-attention KV
+    (1, 1, 100, 50, 32),     # both dims ragged
+    (2, 3, 130, 77, 16),     # the tiny config's head dim
+    (1, 2, 200, 77, 40),     # sd15's
+    (2, 1, 130, 300, 80),
+    (1, 2, 200, 300, 128),
+    (1, 1, 70, 90, 20),      # any d
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", F32_SHAPES)
+def test_f32_kernels_match_plain(dev, b, h, sq, skv, d):
+    """The fp32 forward, dQ and dK/dV kernels within 2e-5 of the fp32 plain
+    versions (fp32 sums in another order, exp2f for exp), on the projections'
+    strided views; counted under their own names."""
+    q, k, v, do = (_proj(b, s, h, d, torch.float32, dev, seed)
+                   for s, seed in ((sq, 1), (skv, 2), (skv, 3), (sq, 4)))
+    scale = d ** -0.5
+    kernels.reset_launches()
+    o, lse = flash_attention(q, k, v)
+    delta = attention_delta(o, do)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        "flash_attention_fwd_f32": 1, "flash_attention_dq_f32": 1, "flash_attention_dkv_f32": 1}
+    ro, rlse = flash_attention_ref(q, k, v)
+    rdq = flash_attention_dq_ref(q, k, v, do, rlse, delta, scale)
+    rdk, rdv = flash_attention_dkv_ref(q, k, v, do, rlse, delta, scale)
+    for got, want in ((o, ro), (lse, rlse), (dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for t in (o, dq, dk, dv):
+        assert t.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_sdpa_at_sd15_head_dims(dev, d, dtype):
+    """sd15's head dims (8 heads over 320, 640 and 1280 channels) through sdpa
+    with autograd, self- and cross-attention: no exception, the kernels of
+    the dtype launched for d <= 128 (none for 160), forward and gradients
+    against the plain versions."""
+    b, h = 2, 8
+    f32 = dtype == torch.float32
+    for skv in (256, 77):
+        q, k, v = (_proj(b, s, h, d, dtype, dev, seed).requires_grad_()
+                   for s, seed in ((256, 1), (skv, 2), (skv, 3)))
+        do = _proj(b, 256, h, d, dtype, dev, 4)
+        kernels.reset_launches()
+        out = sdpa(q, k, v)
+        out.backward(do)
+        torch.cuda.synchronize()
+        suffix = "_f32" if f32 else ""
+        want = 1 if d <= 128 else 0
+        for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+            assert kernels.LAUNCHES[name + suffix] == want
+        grads = [t.grad.clone() for t in (q, k, v)]
+        for t in (q, k, v):
+            t.grad = None
+        with kernels.plain_versions():
+            ref = sdpa(q, k, v)
+            ref.backward(do)
+        tol = 2e-5 if f32 else 2e-2
+        assert out.dtype == dtype and _rel(out, ref) <= tol
+        for got, t in zip(grads, (q, k, v)):
+            assert bool(torch.isfinite(got).all()) and _rel(got, t.grad) <= tol
+
+
+def _tiny_inputs(model, dev, F=4):
+    """One GOR outfit at the tiny config (chip_smoke.py's gor_inputs)."""
+    from difashion_tpu_torch.engine.generate import GenerationInputs
+
+    cfg = model.config
+    s, C = cfg.unet.sample_size, cfg.vae.latent_channels
+    g = torch.Generator().manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(dev)
+    ids = torch.randint(0, cfg.text.vocab_size, (F, 77), generator=g).to(dev)
+    with torch.inference_mode():
+        cate_text = model.encode_text(ids)
+        null_text = model.encode_text(torch.zeros_like(ids[:1]))[0]
+    return GenerationInputs(
+        init_latents=rand(F, s, s, C), outfit_idx=torch.zeros(F, dtype=torch.long, device=dev),
+        known_latents=rand(1, F, s, s, C) * 0.2,
+        gen_mask=torch.ones(1, F, dtype=torch.bool, device=dev),
+        gen_index=torch.arange(F, device=dev).view(1, F), hist_latents=rand(F, s, s, C) * 0.2,
+        cate_text=cate_text, null_text=null_text, null_latent=rand(s, s, C) * 0.05)
+
+
+def test_tiny_sampler_in_fp32(dev):
+    """mixed_precision other than "bf16" builds an fp32 model: `build_sampler`
+    at the tiny config runs every UNet attention on the fp32 kernel and
+    matches the CPU's fp32 run."""
+    import copy
+
+    from difashion_tpu_torch.config import ModelConfig
+    from difashion_tpu_torch.engine.generate import build_sampler, make_guidance_spec
+    from difashion_tpu_torch.models.difashion import create_difashion
+    from difashion_tpu_torch.nn.attention import CrossAttention
+    from difashion_tpu_torch.nn.layers import GroupNorm
+
+    cpu = create_difashion(ModelConfig.tiny(), seed=0, device="cpu")
+    cuda = copy.deepcopy(cpu).to(dev)
+    n_attn = sum(isinstance(m, CrossAttention) for m in cpu.unet.modules())
+    n_gn = sum(isinstance(m, GroupNorm) for m in cpu.unet.modules())
+    out = {}
+    for name, model, where in (("cpu", cpu, "cpu"), ("cuda", cuda, dev)):
+        sampler = build_sampler(model, num_inference_steps=5,
+                                spec=make_guidance_spec(12.0, 4.0, 5.0), eta=0.1)
+        kernels.reset_launches()
+        out[name] = sampler(_tiny_inputs(model, where)).cpu()
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {
+        "flash_attention_fwd_f32": 6 * n_attn, "group_norm_silu": 6 * n_gn}
+    assert bool(torch.isfinite(out["cuda"]).all())
+    assert _rel(out["cuda"], out["cpu"]) <= 1e-4
+
+
+def test_fp32_train_step(dev):
+    """One train step of the tiny config with mixed_precision="no" (autocast
+    off, fp32 throughout): the fp32 forward, dQ and dK/dV kernels under every
+    UNet attention, a finite loss and moved parameters."""
+    from difashion_tpu_torch.config import ModelConfig, TrainConfig
+    from difashion_tpu_torch.engine.train import TrainBatch, build_train_step
+    from difashion_tpu_torch.models.difashion import create_difashion
+    from difashion_tpu_torch.nn.attention import CrossAttention
+
+    cfg, tc = ModelConfig.tiny(), TrainConfig(mixed_precision="no")
+    model = create_difashion(cfg, seed=0, device=dev)
+    n_attn = sum(isinstance(m, CrossAttention) for m in model.unet.modules())
+    step, init = build_train_step(model, tc)
+    state = init()
+    before = [p.detach().clone() for p in state.params]
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, olen, s, C = tc.train_batch_size, 4, cfg.unet.sample_size, cfg.vae.latent_channels
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    batch = TrainBatch(images=None, latent_mean=r(B, olen, s, s, C),
+                       latent_logvar=r(B, olen, s, s, C) - 6.0,
+                       input_ids=torch.randint(0, cfg.text.vocab_size, (B, olen, 77),
+                                               generator=g, device=dev),
+                       hist_latents=r(B, olen, s, s, C) * 0.3)
+    with torch.no_grad():
+        null_text = model.encode_text(torch.zeros(1, 77, dtype=torch.long, device=dev))[0]
+    kernels.reset_launches()
+    state, metrics = step(state, batch, r(s, s, C) * 0.05, null_text, g)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kernels.LAUNCHES.items() if c and "flash" in n}
+    assert launches == {"flash_attention_fwd_f32": n_attn, "flash_attention_dq_f32": n_attn,
+                        "flash_attention_dkv_f32": n_attn}
+    assert np.isfinite(float(metrics["loss"])) and not bool(metrics["update_skipped"])
+    assert any(not torch.equal(a, p) for a, p in zip(before, state.params))
 
 
 # ---- GroupNorm (+ SiLU) ------------------------------------------------------

@@ -17,7 +17,8 @@ from difashion_tpu.nn.pallas.flash_attention import flash_attention as jax_flash
 from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.attention import sdpa
 from difashion_tpu_torch.nn.kernels.flash_attention import (
-    HEAD_DIMS,
+    BWD_HEAD_DIMS,
+    F32_SOURCE,
     FlashAttention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
@@ -31,6 +32,8 @@ SHAPES = [
     (1, 2, 64, 64, 64),      # the mid level's short self-attention
     (1, 2, 77, 77, 64),
     (2, 3, 130, 77, 16),     # the tiny config's head dim
+    (1, 2, 200, 77, 40),     # sd15's head dims
+    (2, 1, 130, 150, 80),
 ]
 
 
@@ -96,6 +99,14 @@ def test_backward_kernel_sources_cover_the_wrapper_head_dims():
         assert name in kernels.KERNELS and name in kernels.LAUNCHES
         src = open(os.path.join(kernels.CSRC_DIR, f"{name}.cu")).read()
         cases = tuple(int(c) for c in re.findall(r"case (\d+): return launch", src))
-        assert cases == HEAD_DIMS
+        assert cases == BWD_HEAD_DIMS
         assert f"flash_attention.py::{tpu}" in src
         assert f'extern "C" int {name}' in src
+    # the fp32 forward, dQ and dK/dV: one source, built with the others, each
+    # kernel counted under its own name
+    assert F32_SOURCE in kernels.KERNELS
+    src = open(os.path.join(kernels.CSRC_DIR, f"{F32_SOURCE}.cu")).read()
+    for name, tpu in (("flash_attention_fwd", "_fwd_kernel"), ("flash_attention_dq", "_dq_kernel"),
+                      ("flash_attention_dkv", "_dkv_kernel")):
+        assert f"{name}_f32" in kernels.LAUNCHES and f"{tpu}" in src
+        assert f'extern "C" int {name}_f32(' in src

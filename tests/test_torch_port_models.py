@@ -140,6 +140,33 @@ def test_unet_matches_jax_and_torch_oracle():
     np.testing.assert_allclose(got, _fixture("unet_tiny_forward")["out"], **TOL)
 
 
+def test_sd15_shaped_unet_matches_jax():
+    """A tiny UNet of sd15's shape: 1x1-conv transformer projections and a
+    fixed number of heads (2 over 80, 160 and 320 channels: head dims 40, 80
+    and 160, as sd15's 8 heads give over 320, 640 and 1280), against the JAX
+    UNet with the same weights. On the CPU d = 40 and 80 take the plain flash
+    version (the kernels' on the card) and d = 160 plain matmul + softmax."""
+    from difashion_tpu.models.unet import init_unet
+
+    kw = dict(sample_size=8, block_out_channels=(80, 160, 320, 320), layers_per_block=1,
+              cross_attention_dim=48, norm_num_groups=8, use_linear_projection=False,
+              fixed_num_heads=2)
+    model, params = init_unet(jcfg.UNetConfig(**kw), jax.random.PRNGKey(3))
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 8, 8, 8).astype(np.float32)
+    tvals = np.array([29, 711], np.int64)
+    ctx = rng.randn(2, 77, 48).astype(np.float32)
+    want = np.asarray(jax.jit(model.apply)({"params": params}, jnp.asarray(x),
+                                           jnp.asarray(tvals), jnp.asarray(ctx)))
+    unet = UNet2DCondition(tcfg.UNetConfig(**kw)).eval()
+    load_tower(unet, export_params(params, "unet"), "unet")
+    heads = {(m.heads, m.head_dim) for m in unet.modules() if hasattr(m, "head_dim")}
+    assert heads == {(2, 40), (2, 80), (2, 160)}
+    with torch.no_grad():
+        got = nhwc(unet(nchw(x), torch.from_numpy(tvals), torch.from_numpy(ctx)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_vae_encode_matches_jax_and_torch_oracle():
     from difashion_tpu.models.vae import AutoencoderKL as JVAE
     from difashion_tpu.models.vae import init_vae
