@@ -76,10 +76,11 @@ line each:
   8. kernel_bwd: the dQ and dK/dV kernels against the plain backward at the
      training UNet's attention shapes (batch 8 = 2 outfits x 4 items) and the
      ragged ones, both held against the plain backward in fp32, with their
-     times, the plain versions', the library backward's and the bounds, also
-     at sd15's training shapes (d = 40 and 80, handed to the kernels as
-     zero-padded copies, with the copies' cost); and the fp32 dQ and dK/dV
-     kernels against the fp32 plain backward at the training shapes;
+     times, the plain versions', the library backward's, the bounds and each
+     kernel's share of its bound, the dK/dV split count and the wrapper's
+     host microseconds per call, also at sd15's training shapes (d = 40 and
+     80, read in place); and the fp32 dQ and dK/dV kernels against the fp32
+     plain backward at the training shapes;
   9. train_reference: the training loss and its gradients at the tiny config
      with injected draws, on the card in bf16 autocast through all three
      kernels, against the CPU in fp32 (the CPU's own bf16 run beside);
@@ -106,6 +107,7 @@ raises and the script exits non-zero; without a CUDA device it exits 2.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -298,7 +300,11 @@ def phase_build():
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln or "warning" in ln]
              for name, log in logs.items()}
-    emit({"phase": "build", "kernels": list(logs), "seconds": seconds, "ptxas": ptxas})
+    # bytes of spill stores summed over each source's instantiations
+    spills = {name: sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log))
+              for name, log in logs.items()}
+    emit({"phase": "build", "kernels": list(logs), "seconds": seconds,
+          "spill_store_bytes": spills, "ptxas": ptxas})
 
 
 def phase_kernel(sites, sd15_sites):
@@ -531,10 +537,12 @@ def phase_kernel_bwd(sites, sd15_sites):
     cotangent (never all ones), O and the LSE from the forward kernel. In
     bf16, the kernels and the plain backward run on the same inputs and are
     held against the plain backward in fp32 of the same values, also at the
-    sd15 UNet's shapes (d = 40 and 80: the wrappers hand the kernels
-    zero-padded copies, whose cost `pad_ms` gives); in fp32 (the fp32
-    kernels, at the training shapes) the kernels are held against the plain
-    backward in fp32 itself. Returns the bf16, fp32 and sd15 rows."""
+    sd15 UNet's shapes (d = 40 and 80, which the kernels read in place); in
+    fp32 (the fp32 kernels, at the training shapes) the kernels are held
+    against the plain backward in fp32 itself. Per site also each kernel's
+    share of its bound (`dq_share`, `dkv_share`), the dK/dV kernel's split
+    count and the wrappers' host microseconds per call. Returns the bf16,
+    fp32 and sd15 rows."""
     import torch
     import torch.nn.functional as F
 
@@ -547,8 +555,7 @@ def phase_kernel_bwd(sites, sd15_sites):
         flash_attention_dq,
         flash_attention_dq_ref,
         flash_attention_ref,
-        kernel_head_dim,
-        pad_head_dim,
+        dkv_splits,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -610,17 +617,13 @@ def phase_kernel_bwd(sites, sd15_sites):
         for kind in ("dq", "dkv"):
             bound_ms, bound_by, ops, nbytes = backward_bound(kind, b, h, sq, skv, d, dtype)
             row.update({f"{kind}_bound_ms": bound_ms, f"{kind}_bound_by": bound_by,
+                        f"{kind}_share": bound_ms / row[f"{kind}_ms"],
                         f"{kind}_tflops": ops / row[f"{kind}_ms"] / 1e9,
                         f"{kind}_gbytes_per_s": nbytes / row[f"{kind}_ms"] / 1e6})
-        dp = kernel_head_dim(d, dtype, backward=True)
-        if dp != d:
-            # what the two wrappers add to the kernels: each pads q, k, v and
-            # dO to dp columns; dQ, dK and dV are copied back to d columns
-            outs = [pad_head_dim(t, dp) for t in kern]
-            row["pad_ms"] = (2 * device_ms(lambda: [pad_head_dim(t, dp) for t in (q, k, v, do)])
-                             + device_ms(lambda: [t[..., :d].contiguous() for t in outs]))
-            row["padded_head_dim"] = dp
-            del outs
+        row["dkv_splits"] = 1 if f32 else dkv_splits(b, h, sq, skv, d)
+        calls = 20 if f32 else 100
+        row["dq_host_us"] = host_us_per_call(lambda: flash_attention_dq(*args), calls=calls)
+        row["dkv_host_us"] = host_us_per_call(lambda: flash_attention_dkv(*args), calls=calls)
         row["ok"] = finite and good
         emit(row)
         (sd15_results if name.startswith("sd15_") else f32_results if f32 else results).append(row)
@@ -2085,16 +2088,17 @@ def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
     by_ops = total(f"{prefix}bound_ms",
                    [r for r in main if r[f"{prefix}bound_by"] == "operations"])
     keys = ("site", "shape_bhqkd", calls, f"{prefix}ms", f"{prefix}plain_ms", "library_ms",
-            f"{prefix}bound_ms", f"{prefix}bound_by", f"{prefix}max_abs_err")
+            f"{prefix}bound_ms", f"{prefix}bound_by", f"{prefix}max_abs_err", f"{prefix}share",
+            f"{prefix}host_us", "dkv_splits")
     source = extra.pop("source", f"difashion_tpu_torch/csrc/{name}.cu")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": extra.pop("replaces"), "launches": launches,
             "max_abs_err": max(r[f"{prefix}max_abs_err"] for r in rows),
             "ms": total(f"{prefix}ms"), "plain_ms": total(f"{prefix}plain_ms"),
             "bound_ms": bound, "bound_by": "operations" if by_ops >= bound / 2 else "bytes",
-            "library_ms": total("library_ms"),
+            "library_ms": total("library_ms"), "share_of_bound": bound / total(f"{prefix}ms"),
             "per": f"{per} ({sum(r[calls] for r in main)} calls)", **extra,
-            "shapes": [{k: r[k] for k in keys} for r in rows]}
+            "shapes": [{k: r[k] for k in keys if k in r} for r in rows]}
 
 
 def gn_entry(gn_results, launches, train_launches, precompute_launches):
@@ -2144,7 +2148,7 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
 
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                  precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
-                 f32_results, bwd_f32_results, f32_launches):
+                 f32_results, bwd_f32_results, f32_launches, bwd_sd15_results):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
@@ -2161,6 +2165,14 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
     f32_source = "difashion_tpu_torch/csrc/flash_attention_f32.cu"
     sd15 = kernel_entry("flash_attention_fwd", sd15_rows, "calls_per_unet_forward", "",
                         "one sd15 UNet forward, d <= 128", 0, replaces=pallas + "50")
+
+    def sd15_bwd(prefix, line):
+        e = kernel_entry("flash_attention_" + prefix[:-1], bwd_sd15_results,
+                         "calls_per_train_step", prefix, "one sd15 train step, d <= 128", 0,
+                         replaces=pallas + line)
+        return {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
+                                  "per", "shapes")}
+
     return {"kernels": [
         kernel_entry("flash_attention_fwd", fwd_rows, "calls_per_unet_forward", "",
                      "one sampler UNet forward", launches["flash_attention_fwd"],
@@ -2172,11 +2184,13 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
         kernel_entry("flash_attention_dq", bwd_results, "calls_per_train_step", "dq_",
                      "one train step", train_launches["flash_attention_dq"],
                      replaces=pallas + "145", library=library,
-                     main_path_launches=launches["flash_attention_dq"]),
+                     main_path_launches=launches["flash_attention_dq"],
+                     sd15_per_train_step=sd15_bwd("dq_", "145")),
         kernel_entry("flash_attention_dkv", bwd_results, "calls_per_train_step", "dkv_",
                      "one train step", train_launches["flash_attention_dkv"],
                      replaces=pallas + "191", library=library,
-                     main_path_launches=launches["flash_attention_dkv"]),
+                     main_path_launches=launches["flash_attention_dkv"],
+                     sd15_per_train_step=sd15_bwd("dkv_", "191")),
         kernel_entry("flash_attention_fwd_f32", f32_rows, "calls_per_unet_forward", "",
                      "one sampler UNet forward in fp32",
                      f32_launches["flash_attention_fwd_f32"], replaces=pallas + "50",
@@ -2233,7 +2247,7 @@ def main():
     # the main path's peak memory
     sd15_train_sites = [s for s in main_path_attention_sites(ModelConfig.sd15(), TRAIN_ROWS)
                         if s[5] <= 128]
-    bwd_results, bwd_f32_results, _ = phase_kernel_bwd(
+    bwd_results, bwd_f32_results, bwd_sd15_results = phase_kernel_bwd(
         main_path_attention_sites(cfg, TRAIN_ROWS), sd15_train_sites)
     phase_train_reference()
     f32_launches = phase_fp32_reference()
@@ -2244,7 +2258,7 @@ def main():
     phase_profile_train(model)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
-                      f32_results, bwd_f32_results, f32_launches))
+                      f32_results, bwd_f32_results, f32_launches, bwd_sd15_results))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

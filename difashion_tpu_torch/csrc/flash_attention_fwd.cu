@@ -71,7 +71,6 @@ namespace {
 using namespace hopper;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kRow = 128;                 // bytes of one swizzled row: 64 16-bit columns
 constexpr int kSmemLimit = 232448;        // dynamic shared memory a block may have
 
 template <int DP, int NC, int BKV, int ST>
@@ -102,52 +101,6 @@ struct Plan {
   static_assert(BKV % 16 == 0 && BKV <= 256 && ST >= 2, "flash fwd: KV tile");
   static_assert(kSmem <= kSmemLimit, "flash fwd: shared memory plan");
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two fp32 values rounded to T and packed, the first in the low half.
-template <typename T>
-__device__ __forceinline__ uint32_t round_pair(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t round_pair<__nv_bfloat16>(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t round_pair<__half>(float lo, float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// S = Q K^T for this consumer's 64 rows and the BKV rows of a K tile: DP / 16
-// k-steps, each 32 bytes along the swizzled rows of a 64-column chunk.
-template <typename T, int DP, int BKV, int BQ>
-__device__ __forceinline__ void issue_qk(float (&s)[BKV / 2], uint32_t q_addr,
-                                         uint32_t k_addr) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c = kk / 4, off = (kk % 4) * 32;
-    const uint64_t da = wgmma_desc_sw128(q_addr + c * BQ * kRow + off, 16, 1024);
-    const uint64_t db = wgmma_desc_sw128(k_addr + c * BKV * kRow + off, 16, 1024);
-    wgmma_ss<T, BKV, 0>(s, da, db, kk != 0);
-  }
-}
-
-// O += P V: P from registers (BKV / 16 k-steps of 16 KV rows), V MN-major in
-// 64-column chunks BKV * 128 bytes apart; a k-step moves 16 rows (2048 bytes).
-template <typename T, int DP, int BKV>
-__device__ __forceinline__ void issue_pv(float (&o)[DP / 2], const uint32_t (&p)[BKV / 16][4],
-                                         uint32_t v_addr) {
-#pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk) {
-    const uint64_t db = wgmma_desc_sw128(v_addr + kk * 16 * kRow, BKV * kRow, 1024);
-    wgmma_rs<T, DP, 1>(o, p[kk], db, 1);
-  }
-}
 
 // The online softmax of one S tile, in place: columns >= `valid` masked to
 // -inf; each thread holds rows g and g + 8 of its warp, a row spread over the
@@ -185,23 +138,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2],
   }
 }
 
-// P rounded to T in the A-fragment layout: k-step kk takes accumulator columns
-// 16kk..16kk+15, i.e. registers 8kk..8kk+7.
-template <typename T, int BKV>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[BKV / 16][4], const float (&s)[BKV / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[kk][i] = round_pair<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-}
-
-// P's registers stay live and in place until the PV wgmma reading them is waited for.
-template <int K>
-__device__ __forceinline__ void fence_rows(uint32_t (&p)[K][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) fence_operands(p[kk]);
-}
-
 template <int DP>
 __device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&alpha)[2]) {
 #pragma unroll
@@ -211,11 +147,6 @@ __device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&alpha)
     o[4 * j + 2] *= alpha[1];
     o[4 * j + 3] *= alpha[1];
   }
-}
-
-template <int ST>
-__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
-  if (++stage == ST) { stage = 0; phase ^= 1; }
 }
 
 template <typename T, int DP, int NC, int BKV, int ST>
@@ -275,20 +206,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_arrive_expect_tx(q_full, P::kQBytes);
 #pragma unroll
         for (int c = 0; c < P::kChunks; ++c)
-          tma_load_4d(sQ + c * P::kBQ * kRow, &qmap, q_full, c * 64, h, q0, b);
+          tma_load_4d(sQ + c * P::kBQ * kSwRow, &qmap, q_full, c * 64, h, q0, b);
         for (int j = 0; j < n_kv; ++j) {
           mbar_wait(&k_empty[stage], phase ^ 1);
           mbar_arrive_expect_tx(&k_full[stage], P::kKVBytes);
           unsigned char* kt = sK + stage * P::kKVBytes;
 #pragma unroll
           for (int c = 0; c < P::kChunks; ++c)
-            tma_load_4d(kt + c * BKV * kRow, &kmap, &k_full[stage], c * 64, h, j * BKV, b);
+            tma_load_4d(kt + c * BKV * kSwRow, &kmap, &k_full[stage], c * 64, h, j * BKV, b);
           mbar_wait(&v_empty[stage], phase ^ 1);
           mbar_arrive_expect_tx(&v_full[stage], P::kKVBytes);
           unsigned char* vt = sV + stage * P::kKVBytes;
 #pragma unroll
           for (int c = 0; c < P::kChunks; ++c)
-            tma_load_4d(vt + c * BKV * kRow, &vmap, &v_full[stage], c * 64, h, j * BKV, b);
+            tma_load_4d(vt + c * BKV * kSwRow, &vmap, &v_full[stage], c * 64, h, j * BKV, b);
           advance<ST>(stage, phase);
         }
         q_phase ^= 1;
@@ -306,9 +237,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     const int my_turn = 1 + cw, next_turn = 1 + (cw + 1) % NC, epilogue = 1 + NC + cw;
     if (cw == NC - 1) named_bar_arrive(1, 256);      // consumer 0 goes first
 
-    const uint32_t q_addr = smem_u32(sQ) + cw * 64 * kRow;
+    const uint32_t q_addr = smem_u32(sQ) + cw * 64 * kSwRow;
     const uint32_t k_addr = smem_u32(sK), v_addr = smem_u32(sV);
-    unsigned char* staging = sO + cw * 64 * kRow;
+    unsigned char* staging = sO + cw * 64 * kSwRow;
     const int r0 = warp * 16 + g;                    // and r0 + 8, of this consumer's 64 rows
     float o[DP / 2];
     float s[BKV / 2];
@@ -332,7 +263,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_wait_lo(&k_full[prev], prev_phase);
         named_bar_sync(my_turn, 256);
         wgmma_fence();
-        issue_qk<T, DP, BKV, P::kBQ>(s, q_addr, k_addr + prev * P::kKVBytes);
+        wgmma_ss_rows<T, DP, BKV, P::kBQ, BKV>(s, q_addr, k_addr + prev * P::kKVBytes);
         wgmma_commit();
         named_bar_arrive(next_turn, 256);
         wgmma_wait<0>();
@@ -342,7 +273,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
           if (n_kv == 1) mbar_arrive(q_empty);       // this tile's last read of Q
         }
         softmax_tile<BKV>(s, m, l, alpha, scale_log2, Skv, t);
-        pack_p<T, BKV>(p, s);
+        pack_rows<T, BKV>(p, s);
         // KV tile j: QK^T of j and PV of j - 1 in flight, then the softmax
         // of j while PV runs
         for (int j = 1; j < n_kv; ++j) {
@@ -352,12 +283,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
           mbar_wait_lo(&k_full[cur], cur_phase);
           named_bar_sync(my_turn, 256);
           wgmma_fence();
-          issue_qk<T, DP, BKV, P::kBQ>(s, q_addr, k_addr + cur * P::kKVBytes);
+          wgmma_ss_rows<T, DP, BKV, P::kBQ, BKV>(s, q_addr, k_addr + cur * P::kKVBytes);
           wgmma_commit();
           rescale<DP>(o, alpha);
           mbar_wait_lo(&v_full[prev], prev_phase);
           wgmma_fence();
-          issue_pv<T, DP, BKV>(o, p, v_addr + prev * P::kKVBytes);
+          wgmma_rs_cols<T, DP, BKV, BKV>(o, p, v_addr + prev * P::kKVBytes);
           wgmma_commit();
           named_bar_arrive(next_turn, 256);
           wgmma_wait<1>();
@@ -371,7 +302,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
           fence_operands(o);
           fence_rows(p);
           if (lane == 0) mbar_arrive(&v_empty[prev]);
-          pack_p<T, BKV>(p, s);
+          pack_rows<T, BKV>(p, s);
           prev = cur;
           prev_phase = cur_phase;
         }
@@ -379,7 +310,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         rescale<DP>(o, alpha);
         mbar_wait_lo(&v_full[prev], prev_phase);
         wgmma_fence();
-        issue_pv<T, DP, BKV>(o, p, v_addr + prev * P::kKVBytes);
+        wgmma_rs_cols<T, DP, BKV, BKV>(o, p, v_addr + prev * P::kKVBytes);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(o);
@@ -394,7 +325,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
           mbar_wait_lo(&k_full[cur], cur_phase);
           named_bar_sync(my_turn, 256);
           wgmma_fence();
-          issue_qk<T, DP, BKV, P::kBQ>(s, q_addr, k_addr + cur * P::kKVBytes);
+          wgmma_ss_rows<T, DP, BKV, P::kBQ, BKV>(s, q_addr, k_addr + cur * P::kKVBytes);
           wgmma_commit();
           named_bar_arrive(next_turn, 256);
           wgmma_wait<0>();
@@ -405,10 +336,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
           }
           softmax_tile<BKV>(s, m, l, alpha, scale_log2, Skv - j * BKV, t);
           rescale<DP>(o, alpha);
-          pack_p<T, BKV>(p, s);
+          pack_rows<T, BKV>(p, s);
           mbar_wait_lo(&v_full[cur], cur_phase);
           wgmma_fence();
-          issue_pv<T, DP, BKV>(o, p, v_addr + cur * P::kKVBytes);
+          wgmma_rs_cols<T, DP, BKV, BKV>(o, p, v_addr + cur * P::kKVBytes);
           wgmma_commit();
           wgmma_wait<0>();
           fence_operands(o);
@@ -429,22 +360,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       const float inv[2] = {1.f / l[0], 1.f / l[1]};
       if (leader) tma_store_wait_read<0>();
       named_bar_sync(epilogue, 128);
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = r0 + 8 * hh;
-          const int off = (j / 8) * P::kBQ * kRow + r * kRow + (((j % 8) ^ (r & 7)) << 4) + t * 4;
-          *reinterpret_cast<uint32_t*>(staging + off) =
-              round_pair<T>(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
-        }
-      }
+      stage_rows<T, DP, P::kBQ>(staging, o, inv, warp, g, t);
       fence_proxy_async_shared();
       named_bar_sync(epilogue, 128);
       if (leader) {
 #pragma unroll
         for (int c = 0; c < P::kChunks; ++c)
-          tma_store_4d(&omap, staging + c * P::kBQ * kRow, c * 64, h, q0 + cw * 64, b);
+          tma_store_4d(&omap, staging + c * P::kBQ * kSwRow, c * 64, h, q0 + cw * 64, b);
         tma_store_commit();
       }
       if (t == 0) {
@@ -459,16 +381,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     // consumer 0's barrier got one arrival more than its turns (the opening one)
     if (cw == 0) named_bar_sync(my_turn, 256);
   }
-}
-
-int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0 &&
-      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return counts[dev];
 }
 
 // Element strides, (batch, head, seq) for q, k, v, o in that order.

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels:
-// the skinny-N matmul and the flash-attention forward.
+// the skinny-N matmul and the flash-attention forward, dQ and dK/dV.
 //
 //   - TMA tensor maps (2-D, and 4-D with any strides), encoded on the host by
 //     cuTensorMapEncodeTiled, reached from the runtime
@@ -13,7 +13,7 @@
 //   - wgmma: shared-memory descriptors for 128-byte-swizzled tiles, the
 //     fence / commit / wait, and mma_async m64nNk16 with fp32 accumulators and
 //     B either K-major or MN-major (the instruction's transpose bit): A in
-//     shared memory (SS; N = 128, 160, 176, 256) or in registers (RS;
+//     shared memory (SS; N = 64, 80, 96, 128, 160, 176, 256) or in registers (RS;
 //     N = 64, 128);
 //   - fence.proxy.async, named barriers and setmaxnreg.
 //
@@ -337,6 +337,38 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
+#define HOPPER_WGMMA_SS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
+#define HOPPER_WGMMA_SS_N80(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+      "%38, %39" \
+      "}, %40, %41, p, 1, 1, 0, %43;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
+#define HOPPER_WGMMA_SS_N96(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+      "}, %48, %49, p, 1, 1, 0, %51;\n}\n" \
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24), HOPPER_D8(32), HOPPER_D8(40) \
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB))
+
 #define HOPPER_WGMMA_SS_N128(TY) \
   asm volatile( \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
@@ -424,10 +456,16 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
 template <typename T, int N, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                                          int scale_d) {
-  static_assert(N == 128 || N == 160 || N == 176 || N == 256,
-                "wgmma_ss: N is 128, 160, 176 or 256");
+  static_assert(N == 64 || N == 80 || N == 96 || N == 128 || N == 160 || N == 176 || N == 256,
+                "wgmma_ss: N is 64, 80, 96, 128, 160, 176 or 256");
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 128) {
+  if constexpr (N == 64) {
+    if constexpr (bf16) HOPPER_WGMMA_SS_N64("bf16"); else HOPPER_WGMMA_SS_N64("f16");
+  } else if constexpr (N == 80) {
+    if constexpr (bf16) HOPPER_WGMMA_SS_N80("bf16"); else HOPPER_WGMMA_SS_N80("f16");
+  } else if constexpr (N == 96) {
+    if constexpr (bf16) HOPPER_WGMMA_SS_N96("bf16"); else HOPPER_WGMMA_SS_N96("f16");
+  } else if constexpr (N == 128) {
     if constexpr (bf16) HOPPER_WGMMA_SS_N128("bf16"); else HOPPER_WGMMA_SS_N128("f16");
   } else if constexpr (N == 160) {
     if constexpr (bf16) HOPPER_WGMMA_SS_N160("bf16"); else HOPPER_WGMMA_SS_N160("f16");
@@ -454,6 +492,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+#undef HOPPER_WGMMA_SS_N64
+#undef HOPPER_WGMMA_SS_N80
+#undef HOPPER_WGMMA_SS_N96
 #undef HOPPER_WGMMA_SS_N128
 #undef HOPPER_WGMMA_SS_N160
 #undef HOPPER_WGMMA_SS_N176
@@ -461,5 +502,129 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HOPPER_WGMMA_RS_N64
 #undef HOPPER_WGMMA_RS_N128
 #undef HOPPER_D8
+
+// ---- device: pieces of the flash-attention kernels (forward, dQ, dK/dV) ---------------
+
+// Bytes of one 128-byte-swizzled row: 64 16-bit columns. A tile of R rows and
+// DP columns lies in shared memory as DP / 64 chunks of R rows x kSwRow bytes.
+constexpr int kSwRow = 128;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two fp32 values rounded to T and packed, the first in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t round_pair(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t round_pair<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t round_pair<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc (64 x N) = A . B^T over DP columns, A and B both K-major tiles of DP
+// columns (A's chunks A_ROWS rows apart, B's B_ROWS; a and b the addresses of
+// A's and B's first row): DP / 16 k-steps, each 32 bytes along the swizzled
+// rows of a 64-column chunk. S = Q K^T in the forward and dQ, S^T = K Q^T in dK/dV.
+template <typename T, int DP, int N, int A_ROWS, int B_ROWS>
+__device__ __forceinline__ void wgmma_ss_rows(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 32;
+    const uint64_t da = wgmma_desc_sw128(a + c * A_ROWS * kSwRow + off, 16, 1024);
+    const uint64_t db = wgmma_desc_sw128(b + c * B_ROWS * kSwRow + off, 16, 1024);
+    wgmma_ss<T, N, 0>(acc, da, db, kk != 0);
+  }
+}
+
+// acc (64 x N) += A . B: A (64 x K) from registers in K / 16 k-steps, B a
+// [K rows][N columns] tile read MN-major, its 64-column chunks B_ROWS rows
+// apart; a k-step moves 16 rows (2048 bytes). O += P V in the forward,
+// dQ += dS K, dV += P^T dO and dK += dS^T Q in the backward.
+template <typename T, int N, int K, int B_ROWS>
+__device__ __forceinline__ void wgmma_rs_cols(float (&acc)[N / 2], const uint32_t (&a)[K / 16][4],
+                                              uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db = wgmma_desc_sw128(b + kk * 16 * kSwRow, B_ROWS * kSwRow, 1024);
+    wgmma_rs<T, N, 1>(acc, a[kk], db, 1);
+  }
+}
+
+// An accumulator (64 x N) rounded to T in the A-fragment layout of wgmma_rs:
+// k-step kk takes accumulator columns 16kk..16kk+15, i.e. registers 8kk..8kk+7.
+template <typename T, int N>
+__device__ __forceinline__ void pack_rows(uint32_t (&a)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = round_pair<T>(acc[8 * kk + 2 * i], acc[8 * kk + 2 * i + 1]);
+}
+
+// A fragments stay live and in place until the wgmma reading them is waited for.
+template <int K>
+__device__ __forceinline__ void fence_rows(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) fence_operands(a[kk]);
+}
+
+// An accumulator (64 x DP, this warpgroup's rows) scaled, rounded to T and
+// written into a 128-byte-swizzled staging tile for a TMA store: `stage` is
+// the warpgroup's first row, its chunks CHUNK_ROWS rows apart; the 16-byte
+// unit u of row r lands at u ^ (r % 8). With warp w, g = lane / 4, t = lane % 4.
+template <typename T, int DP, int CHUNK_ROWS>
+__device__ __forceinline__ void stage_rows(unsigned char* stage, const float (&acc)[DP / 2],
+                                           const float (&mul)[2], int warp, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = warp * 16 + g + 8 * hh;
+      const int off =
+          (j / 8) * CHUNK_ROWS * kSwRow + r * kSwRow + (((j % 8) ^ (r & 7)) << 4) + t * 4;
+      *reinterpret_cast<uint32_t*>(stage + off) =
+          round_pair<T>(acc[4 * j + 2 * hh] * mul[hh], acc[4 * j + 2 * hh + 1] * mul[hh]);
+    }
+  }
+}
+
+// Ping-pong between consumer warpgroups (PP): a warpgroup issues a block of
+// wgmma between taking its turn (bar.sync on its own named barrier) and
+// passing it (bar.arrive on the next warpgroup's), 256 threads a barrier (the
+// waiting warpgroup and the arriving one), so that the warpgroups' products
+// reach the tensor cores in turns while the others compute between them.
+template <bool PP>
+__device__ __forceinline__ void turn_take(int id) {
+  if constexpr (PP) named_bar_sync(id, 256);
+}
+template <bool PP>
+__device__ __forceinline__ void turn_pass(int id) {
+  if constexpr (PP) named_bar_arrive(id, 256);
+}
+
+// The next stage of a ring of ST, flipping the phase parity on the wrap.
+template <int ST>
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == ST) { stage = 0; phase ^= 1; }
+}
+
+// The SM count of the current device (the size of a persistent grid).
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return counts[dev];
+}
 
 }  // namespace hopper

@@ -98,21 +98,6 @@ __device__ __forceinline__ uint16_t load_u16_early(const void* p) {
   return v;
 }
 
-// Two fp32 values rounded to T and packed, the first in the low half (one
-// cvt.rn for the pair).
-template <typename T>
-__device__ __forceinline__ uint32_t round_pair(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t round_pair<__nv_bfloat16>(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t round_pair<__half>(float lo, float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Packed pairs added with one rounding (add.rn on the pair): the sum of two
 // 16-bit values is exact in fp32, so this is what adding them in fp32 and
 // rounding gives, as torch's and XLA's bf16 / fp16 adds do.
@@ -287,16 +272,6 @@ skinny_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     if (leader) tma_store_wait<0>();
   }
-}
-
-int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0 &&
-      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return counts[dev];
 }
 
 template <typename T, int BN, bool KN>

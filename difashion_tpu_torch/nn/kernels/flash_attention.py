@@ -10,7 +10,12 @@ Ports of `difashion_tpu/nn/pallas/flash_attention.py`:
   * `_dq_kernel` (through `_backward`) -> `csrc/flash_attention_dq.cu`:
     dQ = scale * [P * (dO V^T - D)] K with P recomputed from the LSE.
   * `_dkv_kernel` (through `_backward`) -> `csrc/flash_attention_dkv.cu`:
-    dV = P^T dO and dK = scale * [P * (dO V^T - D)]^T Q.
+    dV = P^T dO and dK = scale * [P * (dO V^T - D)]^T Q; where its KV tiles
+    are too few to fill the card, the query range is split in parts
+    (`dkv_splits`) whose fp32 partial sums the same source adds in split
+    order, into a workspace the wrapper allocates.
+  The 16-bit kernels are built the same way (TMA, wgmma, warp
+  specialisation, persistent grids) and read the head dim in place.
   * all three for fp32 inputs -> `csrc/flash_attention_f32.cu` (SIMT FFMA,
     no tf32, no 16-bit rounding), counted as `flash_attention_fwd_f32`,
     `flash_attention_dq_f32` and `flash_attention_dkv_f32`.
@@ -21,9 +26,10 @@ backward runs the two backward kernels.
 
 Every head dim up to 128 runs on the kernels, in bf16, fp16 and fp32, as the
 Pallas kernel takes any d <= 128. `kernel_head_dim` works out, in one place,
-what the kernels are handed for a head dim d (`pad_head_dim` makes the
-zero-padded copies): zero columns of Q, K, V and dO leave S, dP, D and the
-kept columns of O, dQ, dK and dV exactly as they were, and the scale stays
+what the kernels are handed for a head dim d, the same for the forward and
+the backward (`pad_head_dim` makes the zero-padded copies where d % 8 != 0
+in 16 bits): zero columns of Q, K, V and dO leave S, dP, D and the kept
+columns of O, dQ, dK and dV exactly as they were, and the scale stays
 1/sqrt(d) of the unpadded d.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
@@ -48,28 +54,50 @@ DQ_NAME = "flash_attention_dq"
 DKV_NAME = "flash_attention_dkv"
 F32_SOURCE = "flash_attention_f32"     # the fp32 kernels' source; each counts as <name>_f32
 MAX_HEAD_DIM = 128
-FWD_HEAD_DIMS = (64, 128)              # the forward kernel's padded head dims (TMA zero fill)
-BWD_HEAD_DIMS = (16, 32, 64, 128)      # the mma.sync backward kernels' instantiations
+FWD_HEAD_DIMS = (64, 128)              # the 16-bit kernels' padded head dims (TMA zero fill)
+# The dK/dV kernel's tile per padded head dim, as csrc/flash_attention_dkv.cu
+# builds it (kTile64, kTile128): (consumer warpgroups, i.e. a KV tile of 64
+# rows each; rows of a Q tile). The split plan reads it.
+DKV_TILES = {64: (2, 64), 128: (1, 64)}
+SM_COUNT = 132                         # an H100 SXM's SMs: the split plan's target
+SPLIT_MIN_Q_TILES = 8                  # the fewest Q tiles a part of a split has
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def kernel_head_dim(d: int, dtype: torch.dtype, backward: bool = False) -> int:
-    """The head dim the kernels are handed for a true head dim d <= 128:
+    """The head dim the kernels are handed for a true head dim d <= 128, the
+    same for the forward and (`backward=True`) the dQ and dK/dV kernels:
       * fp32: d (the SIMT kernels take any d, padding their tiles in place);
-      * the 16-bit forward: d where d % 8 == 0, read in place (the kernel's
-        TMA boxes are 64 columns wide and zero-fill up to 64 or 128); any
-        other d rounded up to a multiple of 8 (a padded copy: TMA takes
-        strides in multiples of 16 bytes);
-      * the 16-bit backward: the smallest of BWD_HEAD_DIMS >= d (a padded
-        copy unless d is one of them): d = 40 -> 64, 80 -> 128 for sd15.
+      * 16 bits: d where d % 8 == 0, read in place (the kernels' TMA boxes
+        are 64 columns wide and zero-fill up to 64 or 128: sd15's 40 and 80
+        need no copy); any other d rounded up to a multiple of 8 (a padded
+        copy: TMA takes strides in multiples of 16 bytes).
     """
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} not in 1..{MAX_HEAD_DIM}")
     if dtype == torch.float32:
         return d
-    if backward:
-        return next(p for p in BWD_HEAD_DIMS if p >= d)
     return -(-d // 8) * 8
+
+
+def dkv_splits(b: int, h: int, sq: int, skv: int, d: int) -> int:
+    """How many parts the dK/dV kernel splits the query range into, for a
+    16-bit call at head dim d <= 128 with its tile (`DKV_TILES`). Where its
+    (KV tile, batch * head) tiles leave most of SM_COUNT SMs idle, as many
+    parts as one wave of SMs takes, each of at least SPLIT_MIN_Q_TILES Q
+    tiles (a part's saving has to pay for the workspace pass), counted again
+    so that no part is empty; else 1. Of the training step's sites that
+    splits the 77-token cross-attention at 4096 tokens only (measured by
+    scripts/flash_bwd_tiles.py: at 1024 and 256 tokens the split ran
+    slower)."""
+    nc, bq = DKV_TILES[64 if d <= 64 else 128]
+    tiles = -(-skv // (64 * nc)) * b * h
+    q_tiles = -(-sq // bq)
+    splits = min(SM_COUNT // tiles, q_tiles // SPLIT_MIN_Q_TILES)
+    if splits <= 1:
+        return 1
+    per = -(-q_tiles // splits)
+    return -(-q_tiles // per)
 
 
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -223,17 +251,19 @@ def _strides(strided):
     return [t.stride(i) if t.shape[i] > 1 else 8 for t in strided for i in range(3)]
 
 
-def _launch(name: str, tensors, ints, strided, scale: float, dtype) -> None:
-    """Call kernel `name` (its fp32 counterpart `<name>_f32` for fp32) on the
-    current stream with the data pointers of `tensors`, the ints, and the
-    (batch, head, seq) element strides of the `strided` tensors; raise on a
-    launch error; count the launch."""
+def _launch(name: str, tensors, ints, strided, scale: float, dtype,
+            entry: Optional[str] = None) -> None:
+    """Call kernel `name` (its fp32 counterpart `<name>_f32` for fp32; the C
+    function `entry` of its source where given) on the current stream with
+    the data pointers of `tensors`, the ints, and the (batch, head, seq)
+    element strides of the `strided` tensors; raise on a launch error; count
+    the launch under `name`."""
     source = name
     if dtype == torch.float32:
         source, name = F32_SOURCE, f"{name}_f32"
     strides = _strides(strided)
     st = (ctypes.c_int64 * len(strides))(*strides)
-    fn = _fn(source, name, len(tensors), len(ints))
+    fn = _fn(source, entry or name, len(tensors), len(ints))
     dev = tensors[0].device
     with torch.cuda.device(dev):
         rc = fn(*(t.data_ptr() for t in tensors), *ints, ctypes.addressof(st),
@@ -308,15 +338,25 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
 
 def flash_attention_dkv(q, k, v, do, lse, delta, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) [B, H, Skv, D] in the input dtype (memory [B, Skv, H, D])."""
+    """(dK, dV) [B, H, Skv, D] in the input dtype (memory [B, Skv, H, D]).
+    In 16 bits, where `dkv_splits` gives more than one part, the kernel's
+    fp32 partial sums go to a workspace of 2 * splits * B * H * Skv * D
+    values, which the same launch adds up (one counted launch)."""
     if q.device.type == "cpu":
         return flash_attention_dkv_ref(q, k, v, do, lse, delta, scale)
     qp, kp, vp, dop = _bwd_inputs(q, k, v, do, lse, delta)
     b, h, sq, dp = qp.shape
     skv = k.shape[2]
     dk, dv = _empty_bshd(b, h, skv, dp, k), _empty_bshd(b, h, skv, dp, v)
-    _launch(DKV_NAME, (qp, kp, vp, dop, lse, delta, dk, dv), (b, h, sq, skv, dp),
-            (qp, kp, vp, dop, dk, dv), scale, q.dtype)
+    splits = 1 if q.dtype == torch.float32 else dkv_splits(b, h, sq, skv, dp)
+    if splits == 1:
+        _launch(DKV_NAME, (qp, kp, vp, dop, lse, delta, dk, dv), (b, h, sq, skv, dp),
+                (qp, kp, vp, dop, dk, dv), scale, q.dtype)
+    else:
+        ws = torch.empty(2 * splits * b * h * skv * dp, dtype=torch.float32, device=q.device)
+        _launch(DKV_NAME, (qp, kp, vp, dop, lse, delta, dk, dv, ws),
+                (b, h, sq, skv, dp, splits), (qp, kp, vp, dop, dk, dv), scale, q.dtype,
+                entry=f"{DKV_NAME}_split")
     d = q.shape[3]
     return _unpad(dk, d), _unpad(dv, d)
 

@@ -57,8 +57,8 @@ SHAPES = [
     (1, 2, 77, 77, 64),
     (2, 3, 130, 77, 16),     # the tiny config's head dim
     (1, 2, 200, 300, 128),
-    (1, 2, 200, 77, 40),     # sd15's head dims: the forward pads them by TMA's
-    (2, 1, 130, 300, 80),    # zero fill, the backward by a zero-padded copy
+    (1, 2, 200, 77, 40),     # sd15's head dims: every kernel pads them by TMA's
+    (2, 1, 130, 300, 80),    # zero fill, no padded copy
 ]
 
 
@@ -218,6 +218,97 @@ def test_backward_layout_and_launch_counts(dev):
     dq2 = flash_attention_dq(q, k, v, do.contiguous(), lse, delta, d ** -0.5)
     dk2, dv2 = flash_attention_dkv(q, k, v, do.contiguous(), lse, delta, d ** -0.5)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+
+@pytest.mark.parametrize("sq", [77, 100, 300])
+@pytest.mark.parametrize("skv", [77, 100, 300])
+@pytest.mark.parametrize("d", [64, 40, 80])
+def test_backward_kernels_ragged_lengths(dev, sq, skv, d):
+    """Ragged query and key lengths on both sides of the tiles: zero-filled Q
+    and dO rows past Sq (P = 1 there, harmless only through the masking),
+    zero-filled K columns past Skv (masked in dQ), an LSE and D row that
+    does not meet TMA's 16-byte stride rule (Sq = 77, 100)."""
+    b, h = 2, 3
+    q, k, v = _qkv(b, h, sq, skv, d, torch.bfloat16, dev, seed=sq + skv + d)
+    do = torch.randn(b, h, sq, d, generator=torch.Generator(device=dev).manual_seed(7),
+                     device=dev).bfloat16()
+    o, lse = flash_attention(q, k, v)
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, d ** -0.5)
+    got = (flash_attention_dq(*args),) + flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    want = (flash_attention_dq_ref(*args),) + flash_attention_dkv_ref(*args)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and g.shape == w.shape
+        assert _rel(g, w) <= 1e-2
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_backward_reads_sd15_head_dims_in_place(dev, d, monkeypatch):
+    """sd15's d = 40 and 80 reach the backward kernels as they are: no padded
+    copy of q, k, v or dO, no [.., dp] output sliced back; the gradients
+    match the plain versions."""
+    from difashion_tpu_torch.nn.kernels import flash_attention as fa
+
+    padded = []
+    real_pad, real_empty = fa.pad_head_dim, fa._empty_bshd
+
+    def pad(t, dp):
+        padded.append((t.shape[-1], dp))
+        return real_pad(t, dp)
+
+    def empty(b, h, s, dd, like):
+        padded.append((d, dd))
+        return real_empty(b, h, s, dd, like)
+
+    monkeypatch.setattr(fa, "pad_head_dim", pad)
+    monkeypatch.setattr(fa, "_empty_bshd", empty)
+    b, h, sq, skv = 2, 8, 256, 77
+    proj = torch.randn(4, b, sq, h * d, generator=torch.Generator(device=dev).manual_seed(d),
+                       device=dev).bfloat16()
+    q, do = (t.view(b, sq, h, d).transpose(1, 2) for t in proj[::3])
+    k, v = (t[:, :skv].view(b, skv, h, d).transpose(1, 2) for t in proj[1:3])
+    o, lse = flash_attention(q, k, v)
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, d ** -0.5)
+    kernels.reset_launches()
+    got = (flash_attention_dq(*args),) + flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_dq"] == 1
+    assert kernels.LAUNCHES["flash_attention_dkv"] == 1
+    assert padded and all(have == dp for have, dp in padded)
+    want = (flash_attention_dq_ref(*args),) + flash_attention_dkv_ref(*args)
+    for g, w in zip(got, want):
+        assert g.shape == (b, h, g.shape[2], d) and g.transpose(1, 2).is_contiguous()
+        assert _rel(g, w) <= 1e-2
+
+
+@pytest.mark.parametrize("b,h,sq,d", [(8, 5, 4096, 64), (2, 5, 1024, 64), (2, 8, 1024, 80),
+                                      (1, 2, 1000, 40)])
+def test_dkv_split_path_is_deterministic(dev, b, h, sq, d):
+    """The 77-token cross-attention's dK/dV through the split path (the
+    query range in parts, their fp32 partial sums added in split order by a
+    second kernel of the same launch): one counted launch a call, the plain
+    version's result, and the same bits on a second call."""
+    from difashion_tpu_torch.nn.kernels.flash_attention import dkv_splits
+
+    skv = 77
+    assert dkv_splits(b, h, sq, skv, d) > 1
+    q, k, v = _qkv(b, h, sq, skv, d, torch.bfloat16, dev, seed=11)
+    do = torch.randn(b, h, sq, d, generator=torch.Generator(device=dev).manual_seed(12),
+                     device=dev).bfloat16()
+    o, lse = flash_attention(q, k, v)
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, d ** -0.5)
+    kernels.reset_launches()
+    dk, dv = flash_attention_dkv(*args)
+    dk2, dv2 = flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_dkv"] == 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rdk, rdv = flash_attention_dkv_ref(*args)
+    assert _rel(dk, rdk) <= 1e-2 and _rel(dv, rdv) <= 1e-2
 
 
 def test_sdpa_autograd_routes_through_the_kernels(dev):

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of `difashion_tpu_torch`, and not
-`chip_smoke.py`, imports JAX, flax or the JAX package."""
+`chip_smoke.py` or a script of `scripts/`, imports JAX, flax or the JAX
+package."""
 import ast
 import os
 import pkgutil
@@ -24,6 +25,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    scripts = os.path.join(REPO, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def test_port_imports_no_jax_in_a_fresh_interpreter():
