@@ -30,9 +30,12 @@ line each:
      every distinct GroupNorm shape of the sampler's UNet forward (batch 16),
      the train step's (batch 8), the VAE decode (batch 4) and the VAE encode
      at the precompute batch (64, 2^31 elements at its first level), in bf16
-     and fp32, with and without SiLU, with its time, the plain version's,
-     the library's (F.group_norm then F.silu, a yardstick only) and the
-     bound;
+     and fp32, with and without SiLU, on channels-last input (the models'
+     layout): per shape the kernel's plan (route, band of k groups, cluster
+     size or chunks), its time, its share of the bound, the plain version's
+     time, the library's (F.group_norm then F.silu on an NCHW copy, its best
+     case; a yardstick only) and the bound; every UNet shape must take the
+     one-read route;
   3c. kernel_mm: the skinny-N matmul kernel against its plain version and
      an fp64 product at every distinct product that the Dense gate routes to
      it on the sampler's UNet (batch 16 and the service's 64), the train
@@ -55,7 +58,8 @@ line each:
      to uint8 at 512 px; the launch counts of that run (no backward launch,
      61 GroupNorms and 130 gated Dense products per UNet forward, 30
      GroupNorms and 4 products in the decode);
-  7. profile: the CUDA kernels of one UNet forward by device time;
+  7. profile: the CUDA kernels of one UNet forward by device time, with the
+     layout (NCHW <-> NHWC) and copy buckets on their own;
   7a. serve: `GenerationPipeline` + `GenerationService(max_batch=4)` at the
      sd2_base widths, DPM-Solver++ at 20 steps, 4-branch CFG: a GOR request
      (1 outfit padded to 16 fills, 64 UNet rows), a FITB request (3 outfits
@@ -98,8 +102,9 @@ line each:
      nn.Linear.forward (here only, as a yardstick), in turns; then one step
      with gradient checkpointing, one with 8-bit AdamW and one on an image
      batch (the VAE encoder inside the step);
- 12. profile_train: one training step by CUDA kernel and its split into
-     forward, backward and optimizer/EMA.
+ 12. profile_train: one training step by CUDA kernel (the layout and copy
+     buckets on their own) and its split into forward, backward and
+     optimizer/EMA.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
@@ -701,12 +706,18 @@ def gn_check(got, want, pre, dtype):
 
 def phase_kernel_gn(sites):
     """The GroupNorm kernel at every site shape, in bf16 and fp32, without
-    and with SiLU: against its plain version on the same inputs, with times
-    and the bound (x read once, y written once, scale and bias read once)."""
+    and with SiLU, on channels-last x: against its plain version on the same
+    inputs, with its plan, times and the bound (x read once, y written once,
+    scale and bias read once). Every UNet site must take the one-read
+    route."""
     import torch
     import torch.nn.functional as F
 
-    from difashion_tpu_torch.nn.kernels.groupnorm import group_norm_silu, group_norm_silu_ref
+    from difashion_tpu_torch.nn.kernels.groupnorm import (
+        gn_plan,
+        group_norm_silu,
+        group_norm_silu_ref,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     results = []
@@ -715,10 +726,14 @@ def phase_kernel_gn(sites):
         c = shape[1]
         scale = torch.rand(c, generator=gen, device="cuda") + 0.5
         bias = torch.randn(c, generator=gen, device="cuda") * 0.2
+        nhwc = [shape[0]] + shape[2:] + [c]
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype).mul_(2).add_(0.5)
+            x = torch.randn(nhwc, generator=gen, device="cuda", dtype=dtype).mul_(2).add_(0.5)
+            x = x.movedim(-1, 1)                      # channels-last [B, C, H, W]
+            plan = gn_plan(x.shape, groups, dtype)
             pre = group_norm_silu_ref(x, scale, bias, groups, eps)
             lib_w, lib_b = scale.to(dtype), bias.to(dtype)
+            x_nchw = x.contiguous()                   # F.group_norm's own layout
             nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
             reps = 25 if nbytes < 2e9 else 8
             for act in (None, "silu"):
@@ -730,12 +745,14 @@ def phase_kernel_gn(sites):
                 del y, want
 
                 def library():
-                    out = F.group_norm(x, groups, lib_w, lib_b, eps)
+                    out = F.group_norm(x_nchw, groups, lib_w, lib_b, eps)
                     return F.silu(out) if act else out
 
                 row = {"phase": "kernel_gn", "shape": shape, "groups": groups, "eps": eps,
                        "dtype": str(dtype).replace("torch.", ""), "act": act,
-                       "elements": x.numel(),
+                       "elements": x.numel(), "route": plan.route, "k": plan.k,
+                       ("cluster" if plan.route == "one_read" else "chunks"): plan.n,
+                       "slice_bytes": plan.slice_bytes(c // groups, x.element_size()),
                        "calls": {p: n.get(act, 0) for p, n in site["calls"].items()},
                        "max_abs_err": err,
                        "ms": device_ms(lambda: group_norm_silu(x, scale, bias, groups, eps, act),
@@ -746,14 +763,22 @@ def phase_kernel_gn(sites):
                        "library_ms": device_ms(library, reps=reps),
                        "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes"}
                 row["gbytes_per_s"] = nbytes / row["ms"] / 1e6
+                row["share"] = row["bound_ms"] / row["ms"]
+                if dtype == torch.bfloat16 and x.numel() < 2 ** 27:
+                    row["host_us"] = host_us_per_call(
+                        lambda: group_norm_silu(x, scale, bias, groups, eps, act))
                 row["ok"] = ok
                 emit(row)
                 results.append(row)
-            del x, pre
+            del x, x_nchw, pre
             torch.cuda.empty_cache()
     bad = [(r["shape"], r["dtype"], r["act"]) for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"group_norm_silu disagrees with its plain version at {bad}")
+    two_pass = [r["shape"] for r in results if r["route"] != "one_read"
+                and any(r["calls"].get(p) for p in ("sampler_unet", "train_unet"))]
+    if two_pass:
+        raise AssertionError(f"UNet GroupNorm shapes off the one-read route: {two_pass}")
     return results
 
 
@@ -1700,7 +1725,8 @@ def phase_serve(model, mm_paths):
 
 # CUDA kernel names -> what they do, first match wins
 PROFILE_CATEGORIES = [
-    ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("group_norm_silu", ("gn_cluster_kernel", "gn_partials_kernel", "gn_finalize_kernel",
+                         "gn_apply_kernel")),
     ("skinny_matmul", ("skinny_matmul_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_dq", ("flash_dq_kernel",)),
@@ -1711,7 +1737,8 @@ PROFILE_CATEGORIES = [
     ("matmul", ("gemm", "nvjet", "cutlass", "cublas")),
     ("optimizer and EMA (foreach)", ("multi_tensor_apply", "foreach")),
     ("softmax (VAE mid-attention)", ("softmax", "SoftMax")),
-    ("elementwise and copies", ("elementwise", "copy", "reduce", "cat")),
+    ("copies", ("copy",)),
+    ("elementwise", ("elementwise", "reduce", "cat")),
 ]
 
 
@@ -1743,6 +1770,8 @@ def device_profile(fn, top=15):
         by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
     return {"host_wall_ms": wall_ms, "device_kernel_ms": device_ms_total,
             "device_busy_share": device_ms_total / wall_ms,
+            "layout_ms": by_category.get("layout NCHW<->NHWC", 0.0),
+            "copies_ms": by_category.get("copies", 0.0),
             "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
             "top": [{"name": k[:100], "ms": us / 1e3, "calls": c} for us, k, c in rows[:top]]}
 
@@ -2116,6 +2145,11 @@ def gn_entry(gn_results, launches, train_launches, precompute_launches):
             "bound_by": "bytes", "library_ms": main["library_ms"],
             "library": "F.group_norm then F.silu in the input dtype",
             "per": f"one sampler UNet forward ({main['calls']} calls, bf16)",
+            "share_of_bound": main["bound_ms"] / main["ms"],
+            "host_us_per_call": statistics.median(r["host_us"] for r in gn_results
+                                                  if "host_us" in r),
+            "plans": sorted({(tuple(r["shape"]), r["dtype"], r["route"], r["k"],
+                              r.get("cluster", r.get("chunks"))) for r in gn_results}),
             "per_path": totals, "train_step_launches": train_launches["group_norm_silu"],
             "precompute_launches": precompute_launches["group_norm_silu"]}
 

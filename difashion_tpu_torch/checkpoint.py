@@ -36,7 +36,13 @@ log = logging.getLogger("difashion_tpu_torch")
 
 
 def _host(tensors: List[torch.Tensor], names: List[str]) -> Dict[str, torch.Tensor]:
-    return {n: t.detach().to("cpu", copy=True) for n, t in zip(names, tensors)}
+    """CPU copies in the default contiguous layout, so that a file's bytes do
+    not depend on the parameters' memory format."""
+    return {n: _saved(t, copy=True) for n, t in zip(names, tensors)}
+
+
+def _saved(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    return t.detach().to("cpu", memory_format=torch.contiguous_format, copy=copy)
 
 
 def _copy_into(tensors: List[torch.Tensor], names: List[str], saved: Dict[str, torch.Tensor],
@@ -80,7 +86,7 @@ class CheckpointStore:
 
     def save_frozen(self, frozen: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """{tower: state dict} of the frozen towers."""
-        torch.save({tower: {k: v.detach().cpu() for k, v in sd.items()}
+        torch.save({tower: {k: _saved(v) for k, v in sd.items()}
                     for tower, sd in frozen.items()}, os.path.join(self.dir, "frozen.pt"))
 
     def load_frozen(self) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels:
-// the skinny-N matmul and the flash-attention forward, dQ and dK/dV.
+// the skinny-N matmul, the flash-attention forward, dQ and dK/dV, and the
+// channels-last GroupNorm.
 //
-//   - TMA tensor maps (2-D, and 4-D with any strides), encoded on the host by
+//   - TMA tensor maps (2-D, 3-D and 4-D with any strides), encoded on the host by
 //     cuTensorMapEncodeTiled, reached from the runtime
 //     (cudaGetDriverEntryPoint*), so that the libraries link nothing but the
 //     runtime;
-//   - the copies: cp.async.bulk.tensor loads (2-D, 4-D) into shared memory,
+//   - the copies: cp.async.bulk.tensor loads (2-D, 3-D, 4-D) into shared memory,
 //     completed on an mbarrier, and stores from shared memory in bulk groups;
 //   - the barriers: mbarrier init, arrive, arrive-expect-tx and try-wait on
 //     a phase parity (with a watchdog that traps rather than hang the card
@@ -16,6 +17,9 @@
 //     shared memory (SS; N = 64, 80, 96, 128, 160, 176, 256) or in registers (RS;
 //     N = 64, 128);
 //   - fence.proxy.async, named barriers and setmaxnreg.
+//
+//   - thread-block clusters: the CTA's rank, the split cluster barrier, and
+//     32-bit loads from another CTA's shared memory (distributed shared memory).
 //
 // Descriptor conventions (128-byte swizzle, 16-bit elements; a tile's base
 // 1024-byte aligned, the swizzle atom being 8 rows of 128 bytes):
@@ -73,8 +77,9 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 template <typename T>
 constexpr CUtensorMapDataType tensor_map_type() {
-  return std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return std::is_same<T, float>::value           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
 
 // A 2-D map of a row-major [rows, cols] matrix of 16-bit elements, `ld`
@@ -93,6 +98,29 @@ inline int encode_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, tensor_map_type<T>(), 2, const_cast<void*>(base), dims, strides,
                         box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - int(r);
+}
+
+// A 3-D map of a tensor (bf16, fp16 or fp32) whose innermost dimension is
+// contiguous: dims[0..2] innermost first, strides[0..1] the element strides
+// of dims 1 and 2 (each a multiple of 16 bytes), read or written in boxes of
+// box[0..2] elements (box[0] * sizeof(T) a multiple of 16 bytes), without
+// swizzle. The GroupNorm's map is over (C, S, B) of a channels-last tensor,
+// in boxes of a band of channels x a run of pixels x 1. Elements outside the
+// tensor load as zeros and are not stored. Returns 0 or an error above.
+template <typename T>
+inline int encode_3d(CUtensorMap* map, const void* base, const uint64_t (&dims)[3],
+                     const int64_t (&strides)[2], const uint32_t (&box)[3]) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t gdims[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t gstrides[2] = {cuuint64_t(strides[0]) * sizeof(T),
+                                  cuuint64_t(strides[1]) * sizeof(T)};
+  const cuuint32_t gbox[3] = {box[0], box[1], box[2]};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, tensor_map_type<T>(), 3, const_cast<void*>(base), gdims, gstrides,
+                        gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - int(r);
 }
@@ -231,6 +259,26 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// Load the box at coordinates (c0, c1, c2) of a 3-D map, innermost first.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Store the box at coordinates (c0, c1, c2) of a 3-D map from src.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Load the box at coordinates (c0, c1, c2, c3) of a 4-D map, innermost first.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
@@ -272,6 +320,35 @@ __device__ __forceinline__ void tma_store_wait() {
 // the async proxy (a TMA store of the same bytes).
 __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- device: clusters ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves: every thread of every CTA of the
+// cluster arrives (release: its earlier shared-memory writes become visible
+// to the cluster), then waits (acquire) until all have arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at this CTA's shared address `addr` in the shared memory of the
+// cluster's CTA `rank`.
+__device__ __forceinline__ float ld_dsmem_f32(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {

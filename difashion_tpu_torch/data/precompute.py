@@ -50,6 +50,7 @@ def encode_catalog(model: DiFashion, image_loader: Callable[[int], np.ndarray],
             imgs = np.stack([image_loader(i) for i in range(start, end)]).astype(np.float32)
             if dist is not None:
                 fetch(dist)
+            # NHWC images seen as channels-last [B, 3, H, W]: the VAE's layout
             dist = model.vae.encode(torch.from_numpy(imgs).to(device).permute(0, 3, 1, 2))
         fetch(dist)
     return {"mean": np.concatenate(means, axis=0),

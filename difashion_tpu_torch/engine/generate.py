@@ -164,7 +164,9 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
         hist_sel, mut_sel = sel(spec.hist_sel, 4), sel(spec.mutual_sel, 4)
         text_sel, weights = sel(spec.text_sel, 3), sel(spec.weights, 4)
 
-        latents = inputs.init_latents.to(f32).permute(0, 3, 1, 2).contiguous()
+        # [F, C, h, w] channels-last views of the NHWC inputs, the UNet's layout
+        latents = inputs.init_latents.to(f32).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
         F, C, h, w = latents.shape
         known = inputs.known_latents.to(f32).permute(0, 1, 4, 2, 3)
         null_lat = inputs.null_latent.to(f32).permute(2, 0, 1)[None, None]
@@ -247,7 +249,8 @@ def pad_generation_inputs(inputs: GenerationInputs, n: int) -> GenerationInputs:
 
 @torch.inference_mode()
 def decode_and_postprocess(model: DiFashion, latents: torch.Tensor) -> torch.Tensor:
-    """Scaled latents [F, h, w, C] -> images [F, H, W, 3] fp32 in [0, 1]."""
+    """Scaled latents [F, h, w, C] -> images [F, H, W, 3] fp32 in [0, 1]. The
+    permutes are views: the VAE reads and writes channels-last."""
     imgs = model.decode_latents(latents.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     return (imgs.float() / 2.0 + 0.5).clamp(0.0, 1.0)
 

@@ -26,7 +26,9 @@ BLOCK = 256
 def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x -> (int8 [n_blocks, BLOCK], fp32 scales [n_blocks]): per-block absmax
     / 127, values rounded half to even and clipped to [-127, 127]; the last
-    block is zero-padded."""
+    block is zero-padded. Blocks run over x's elements in their logical
+    (row-major) order whatever its memory layout: a channels-last conv
+    weight is flattened by a copy, into the same blocks as a contiguous one."""
     flat = x.reshape(-1).float()
     xp = F.pad(flat, (0, (-flat.numel()) % BLOCK)).reshape(-1, BLOCK)
     scale = xp.abs().amax(dim=1, keepdim=True) / 127.0

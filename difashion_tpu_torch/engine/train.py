@@ -204,11 +204,12 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor,
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """[N, h, w, C] -> [N, C, h, w]: a channels-last view, the towers' layout."""
     return x.permute(0, 3, 1, 2)
 
 
 def _rows(x: torch.Tensor, n: int) -> torch.Tensor:
-    """[B, olen, h, w, C] -> [B*olen, C, h, w] in fp32."""
+    """[B, olen, h, w, C] -> [B*olen, C, h, w] in fp32, channels-last."""
     return _nchw(x.reshape((n,) + tuple(x.shape[2:]))).float()
 
 

@@ -3,8 +3,9 @@ schedule. Counterpart of `difashion_tpu/models/difashion.py`.
 
 The JAX package passes parameters beside its modules; here the towers are
 `nn.Module`s that hold their own. The split stays the same: trainable
-{unet, fashion_encoder}, frozen {vae, text_encoder}. Tensors are NCHW inside
-the bundle.
+{unet, fashion_encoder}, frozen {vae, text_encoder}. Image and latent tensors
+are [B, C, H, W] by shape inside the bundle, channels-last in memory in the
+UNet and the VAE.
 """
 from __future__ import annotations
 
@@ -118,7 +119,10 @@ def _init_(model: DiFashion, generator: torch.Generator) -> None:
                 std = math.sqrt(2.0 / (fan_in + w.shape[0]))
             else:
                 std = 1.0 / math.sqrt(fan_in)
-            w.normal_(0.0, std, generator=generator)
+            # drawn in the logical order, so a channels-last weight holds the
+            # same values as a contiguous one from the same seed
+            w.copy_(torch.empty(w.shape, device=w.device, dtype=w.dtype).normal_(
+                0.0, std, generator=generator))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):

@@ -1,5 +1,9 @@
-"""SD UNet2DCondition, NCHW, diffusers key layout, with DiFashion's 8-channel
-conv_in. Counterpart of `difashion_tpu/models/unet.py`.
+"""SD UNet2DCondition, diffusers key layout, with DiFashion's 8-channel
+conv_in. Counterpart of `difashion_tpu/models/unet.py`. Tensors are
+[B, C, H, W] by shape and channels-last in memory: the conv weights are made
+channels-last where the model is built, and the sample on entry, so every
+activation inside is too (the JAX package's NHWC), as cuDNN's fast
+convolutions and the GroupNorm kernel read it.
 
 conv_in -> time MLP -> 3 cross-attention down blocks + 1 plain down block ->
 mid (resnet, transformer, resnet) -> 1 plain up block + 3 cross-attention up
@@ -38,6 +42,7 @@ from difashion_tpu_torch.nn.layers import (
     Upsample2D,
     conv2d,
     get_timestep_embedding,
+    to_channels_last,
 )
 
 
@@ -122,6 +127,7 @@ class UNet2DCondition(nn.Module):
         self.conv_out = conv2d(ch, cfg.out_channels)
         self.gradient_checkpointing = False
         self.remat_policy: Optional[str] = None
+        to_channels_last(self)
 
     def set_gradient_checkpointing(self, enabled: bool,
                                    policy: Optional[str] = None) -> None:
@@ -148,10 +154,9 @@ class UNet2DCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         """sample [B, C_in, H, W]; timesteps [B] (or a scalar); context
-        [B, S, context_dim]. Returns [B, C_out, H, W] in the compute dtype.
-        The sample is made contiguous first, so every activation inside is
-        NCHW (a permuted NHWC sample would make the convolutions' outputs
-        channels-last)."""
+        [B, S, context_dim]. Returns [B, C_out, H, W], channels-last, in the
+        compute dtype. The sample is made channels-last first (a view of an
+        NHWC sample: no copy)."""
         cfg, dtype = self.config, self.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
@@ -160,7 +165,7 @@ class UNet2DCondition(nn.Module):
         temb = self.time_embedding(t_emb.to(dtype))
         ctx = encoder_hidden_states.to(dtype)
 
-        h = self.conv_in(sample.to(dtype).contiguous())
+        h = self.conv_in(sample.to(dtype).contiguous(memory_format=torch.channels_last))
         skips = [h]
         for block in self.down_blocks:
             for i, resnet in enumerate(block.resnets):

@@ -1,8 +1,11 @@
-"""AutoencoderKL (the SD VAE), NCHW, diffusers key layout. Counterpart of
+"""AutoencoderKL (the SD VAE), diffusers key layout. Counterpart of
 `difashion_tpu/models/vae.py`. Generation decodes; the catalog precompute
 (`data/precompute.py`) and a training step on image batches encode. The
-caller applies the scaling factor (0.18215). Inputs are made contiguous
-first, so every activation inside is NCHW, as the GroupNorm kernel reads it.
+caller applies the scaling factor (0.18215). Tensors are [B, C, H, W] by
+shape and channels-last in memory, as in the UNet: the conv weights from the
+build, the input on entry (a view of NHWC images or latents), so every
+activation inside, as cuDNN's fast convolutions and the GroupNorm kernel read
+it.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from difashion_tpu_torch.nn.layers import (
     ResnetBlock2D,
     Upsample2D,
     conv2d,
+    to_channels_last,
 )
 
 
@@ -132,18 +136,23 @@ class AutoencoderKL(nn.Module):
         lat = config.latent_channels
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = nn.Conv2d(lat, lat, 1)
+        to_channels_last(self)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.quant_conv.weight.dtype
 
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
-        """x [B, 3, H, W] in [-1, 1] -> DiagonalGaussian over [B, C_lat, H/8, W/8]."""
-        moments = self.quant_conv(self.encoder(x.to(self.dtype).contiguous()))
+        """x [B, 3, H, W] in [-1, 1] -> DiagonalGaussian over [B, C_lat, H/8, W/8]
+        (channels-last)."""
+        moments = self.quant_conv(self.encoder(
+            x.to(self.dtype).contiguous(memory_format=torch.channels_last)))
         mean, logvar = moments.chunk(2, dim=1)
         return DiagonalGaussian(mean, logvar)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """z [B, C_lat, h, w] (already divided by the scaling factor) -> [B, 3, H, W]."""
-        return self.decoder(self.post_quant_conv(z.to(self.dtype).contiguous()))
+        """z [B, C_lat, h, w] (already divided by the scaling factor) -> [B, 3, H, W]
+        (channels-last)."""
+        return self.decoder(self.post_quant_conv(
+            z.to(self.dtype).contiguous(memory_format=torch.channels_last)))
 

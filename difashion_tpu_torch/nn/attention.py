@@ -19,10 +19,10 @@ wrappers decide that from the tensor's device). While
 the plain versions on any device; it exists so a run can hold the kernel path
 against it.
 
-The residual adds put the residual first (`x + h`): an add takes the memory
-layout of its first operand, and the [B, S, C] -> NCHW view of the
-projections' output is channels-last, which the GroupNorm kernel after it
-would have to copy.
+The UNet's and the VAE's activations are channels-last, so the
+[B, C, H, W] <-> [B, S, C] turns around the projections are views: no copy on
+either side. The residual adds put the residual first (`x + h`): an add takes
+the memory layout of its first operand, which is channels-last throughout.
 """
 from __future__ import annotations
 
@@ -138,6 +138,7 @@ class Transformer2D(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, hgt, wid = x.shape
+        # channels-last [B, C, H, W] <-> [B, S, C]: views
         h = self.norm(x)
         if self.use_linear_projection:
             h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hgt * wid, c))
@@ -168,10 +169,10 @@ class VAEAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hgt, wid = x.shape
-        # [B, HW, C] made contiguous once for the three projections (the
-        # skinny-N kernel reads rows with unit stride along C)
-        h = self.group_norm(x).reshape(b, c, hgt * wid).transpose(1, 2).contiguous()
+        # channels-last [B, C, H, W] <-> [B, HW, C]: views (the skinny-N
+        # kernel reads rows with unit stride along C)
+        h = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, hgt * wid, c)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
         out = sdpa(q[:, None], k[:, None], v[:, None])[:, 0]
         out = self.to_out[0](out)
-        return x + out.transpose(1, 2).reshape(b, c, hgt, wid)
+        return x + out.reshape(b, hgt, wid, c).permute(0, 3, 1, 2)

@@ -1,9 +1,12 @@
-"""NCHW neural-net primitives shared by the UNet, the VAE and the text tower.
+"""Neural-net primitives shared by the UNet, the VAE and the text tower.
 
 Counterparts of `difashion_tpu/nn/layers.py`. Module and parameter names are
 the diffusers ones, so the HF-layout state dicts that the JAX package exports
-load 1:1. Weights live in the module's dtype; GroupNorm statistics are fp32.
-Every linear layer of the port's models is a `Dense`.
+load 1:1. Tensors are [B, C, H, W] by shape; the UNet and the VAE keep every
+4-D activation and conv weight channels-last in memory (`to_channels_last`),
+the layout of the JAX package's NHWC, of cuDNN's fast convolutions and of the
+GroupNorm kernel. Weights live in the module's dtype; GroupNorm statistics are
+fp32. Every linear layer of the port's models is a `Dense`.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.kernels.groupnorm import (
     ACTS,
     GroupNormSiLU,
+    channels_last,
     group_norm_silu,
     group_norm_silu_ref,
 )
@@ -28,6 +32,15 @@ from difashion_tpu_torch.nn.kernels.skinny_matmul import (
     skinny_matmul,
     skinny_matmul_ref,
 )
+
+
+def to_channels_last(module: nn.Module) -> nn.Module:
+    """Every 4-D parameter and buffer of `module` (the conv weights) in
+    `torch.channels_last`, in place; what they hold is unchanged. A
+    convolution with a channels-last weight gives a channels-last output, so
+    the activations follow the weights; a module that is moved or cast later
+    (`.to`, `load_state_dict`, `copy.deepcopy`) keeps the layout."""
+    return module.to(memory_format=torch.channels_last)
 
 
 class Dense(nn.Linear):
@@ -110,8 +123,8 @@ class GroupNorm(nn.GroupNorm):
         args = (self.weight, self.bias, self.num_groups, self.eps, self.act)
         if kernels.plain_active():
             return group_norm_silu_ref(x, *args)
-        # the kernel reads NCHW; a no-op for the models' activations
-        x = x.contiguous()
+        # the kernel reads channels-last; a no-op for the models' activations
+        x = channels_last(x)
         if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
                                         or self.bias.requires_grad):
             return GroupNormSiLU.apply(x, *args)
@@ -172,7 +185,10 @@ class Upsample2D(nn.Module):
         self.conv = conv2d(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        # interpolate keeps channels-last but for a 1x1 input, whose layout
+        # is ambiguous (the tiny config's deepest level)
+        up = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        return self.conv(up.contiguous(memory_format=torch.channels_last))
 
 
 class GEGLU(nn.Module):

@@ -23,7 +23,12 @@ from difashion_tpu_torch.nn.kernels.flash_attention import (
     flash_attention_dq_ref,
     flash_attention_ref,
 )
-from difashion_tpu_torch.nn.kernels.groupnorm import group_norm_silu, group_norm_silu_ref
+from difashion_tpu_torch.nn.kernels.groupnorm import (
+    gn_plan,
+    group_norm_silu,
+    group_norm_silu_ref,
+    is_channels_last,
+)
 from difashion_tpu_torch.nn.kernels.skinny_matmul import (
     SkinnyMatmul,
     skinny_matmul,
@@ -494,20 +499,25 @@ def test_fp32_train_step(dev):
 
 # ---- GroupNorm (+ SiLU) ------------------------------------------------------
 
-GN_SHAPES = [  # (B, C, H, W, groups): vector and scalar paths, one and many chunks
+GN_SHAPES = [  # (B, C, H, W, groups): both routes, one CTA and clusters, ragged S
     (2, 64, 8, 8, 32),
     (3, 64, 4, 4, 8),          # the tiny config's groups; HW = 16
-    (1, 96, 7, 7, 32),         # HW = 49: the scalar path
+    (1, 96, 7, 7, 32),         # HW = 49, cg 3: bands of 8 groups, ragged boxes
     (2, 960, 16, 16, 32),      # C/G = 30, the UNet's widest up-level norm
-    (1, 128, 128, 128, 32),    # a VAE level: many chunks per group
+    (1, 960, 64, 64, 32),      # its 64x64 level: a cluster of 10 (non-portable size)
+    (1, 128, 128, 128, 32),    # a VAE level: a cluster over 16384 rows
+    (1, 512, 256, 256, 32),    # 4 MB a band in fp32: two passes
     (2, 4, 1, 1, 2),           # one element per channel
+    (2, 33, 5, 7, 3),          # odd C: 66-byte rows, no TMA, scalar two passes
 ]
 
 
 def _gn_inputs(shape, groups, dtype, dev, seed=0, offset=0.0):
+    """x channels-last (drawn as [B, H, W, C]), scale and bias [C]."""
     b, c = shape[:2]
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.randn(shape, generator=g, device=dev) * 2 + offset).to(dtype)
+    nhwc = (b,) + tuple(shape[2:]) + (c,)
+    x = (torch.randn(nhwc, generator=g, device=dev) * 2 + offset).to(dtype).movedim(-1, 1)
     scale = torch.randn(c, generator=g, device=dev) * 0.5 + 1
     bias = torch.randn(c, generator=g, device=dev) * 0.5
     return x, scale, bias
@@ -536,11 +546,31 @@ def test_group_norm_kernel_matches_plain(dev, b, c, h, w, groups, dtype, act):
     assert kernels.LAUNCHES["group_norm_silu"] == 1
     pre = group_norm_silu_ref(x, scale, bias, groups, 1e-6)
     want = group_norm_silu_ref(x, scale, bias, groups, 1e-6, act)
-    assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+    assert y.dtype == dtype and y.shape == x.shape and is_channels_last(y)
     assert bool(torch.isfinite(y).all())
     assert _gn_close(y, want, pre, dtype)
-    # deterministic: no atomics
-    assert torch.equal(y, group_norm_silu(x, scale, bias, groups, 1e-6, act))
+    # deterministic: no atomics, a fixed merge order (the cluster's too)
+    for _ in range(3):
+        assert torch.equal(y, group_norm_silu(x, scale, bias, groups, 1e-6, act))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_misaligned_and_ragged(dev, dtype):
+    """x starting off a 16-byte boundary (a batch row of a [B, S, C] buffer
+    whose rows are 2 elements short of 16 bytes) takes the scalar two-pass
+    route; a ragged S (7 x 9) on a 16-byte C the one-read route."""
+    b, c, groups = 3, 64, 8
+    g = torch.Generator(device=dev).manual_seed(4)
+    buf = torch.randn(b * 63 * c + 2, generator=g, device=dev).to(dtype)
+    x = buf[2:].view(b, 7, 9, c).movedim(-1, 1)
+    assert x.data_ptr() % 16 and is_channels_last(x)
+    scale, bias = torch.rand(c, generator=g, device=dev) + 0.5, torch.randn(c, device=dev)
+    assert gn_plan(x.shape, groups, dtype, aligned=False).route == "two_pass"
+    for xx in (x, x.clone()):
+        y = group_norm_silu(xx, scale, bias, groups, 1e-5, "silu")
+        pre = group_norm_silu_ref(xx, scale, bias, groups, 1e-5)
+        assert _gn_close(y, torch.nn.functional.silu(pre), pre, dtype)
+        assert torch.equal(y, group_norm_silu(xx, scale, bias, groups, 1e-5, "silu"))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -564,12 +594,13 @@ def test_group_norm_kernel_beyond_2_31_elements(dev):
     first level one image past the precompute batch): 64-bit offsets."""
     b, c, s, groups = 65, 128, 512, 32
     g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn(b, c, s, s, generator=g, device=dev, dtype=torch.bfloat16)
-    assert x.numel() > 2 ** 31
+    x = torch.randn(b, s, s, c, generator=g, device=dev, dtype=torch.bfloat16).movedim(-1, 1)
+    assert x.numel() > 2 ** 31 and gn_plan(x.shape, groups, x.dtype).route == "two_pass"
     scale = torch.rand(c, generator=g, device=dev) + 0.5
     bias = torch.randn(c, generator=g, device=dev) * 0.1
     y = group_norm_silu(x, scale, bias, groups, 1e-6, "silu")
     torch.cuda.synchronize()
+    assert torch.equal(y[-1:], group_norm_silu(x, scale, bias, groups, 1e-6, "silu")[-1:])
     for i in (0, b - 1):
         pre = group_norm_silu_ref(x[i:i + 1], scale, bias, groups, 1e-6)
         want = group_norm_silu_ref(x[i:i + 1], scale, bias, groups, 1e-6, "silu")
@@ -578,10 +609,24 @@ def test_group_norm_kernel_beyond_2_31_elements(dev):
     torch.cuda.empty_cache()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_plain_version_either_layout(dev, dtype):
+    """The plain version on the card gives the same numbers on channels-last
+    and on NCHW x (per-channel moments over S: no layout copy), up to the
+    order of its fp32 sums."""
+    x, scale, bias = _gn_inputs((2, 320, 32, 32), 32, dtype, dev, seed=3, offset=3.0)
+    got = group_norm_silu_ref(x, scale, bias, 32, 1e-6, "silu")
+    want = group_norm_silu_ref(x.contiguous(), scale, bias, 32, 1e-6, "silu")
+    assert is_channels_last(got) and want.is_contiguous()
+    assert _gn_close(got, want, group_norm_silu_ref(x, scale, bias, 32, 1e-6), dtype)
+
+
 def test_group_norm_wrapper_rejects(dev):
     x, scale, bias = _gn_inputs((2, 64, 8, 8), 8, torch.bfloat16, dev)
     with pytest.raises(ValueError):
         group_norm_silu(x.transpose(2, 3), scale, bias, 8, 1e-5)      # not contiguous
+    with pytest.raises(ValueError):
+        group_norm_silu(x.contiguous(), scale, bias, 8, 1e-5)         # NCHW, not channels-last
     with pytest.raises(ValueError):
         group_norm_silu(x, scale, bias, 6, 1e-5)                      # 64 % 6
     with pytest.raises(TypeError):
@@ -604,8 +649,8 @@ def test_group_norm_module_routes_through_the_kernel(dev):
     kernels.reset_launches()
     with torch.inference_mode():
         gn(x.detach())
-    # a channels-last input is made contiguous for the kernel
-    gn(x.detach().to(memory_format=torch.channels_last))
+    # an NCHW input is made channels-last for the kernel
+    gn(x.detach().contiguous())
     with torch.autocast("cuda", dtype=torch.bfloat16):
         y = gn(x)
     y.backward(dy)

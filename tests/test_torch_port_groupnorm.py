@@ -2,8 +2,10 @@
 the port runs on the CPU, against the JAX package: `group_norm_act` with the
 Pallas kernel in interpret mode, `jax.grad` through its custom VJP, the
 reference `_gn_silu_ref` in bf16, and the committed torch-oracle fixture
-`prim_pallas_gn_silu.npz`. The CUDA kernel itself is held against the same
-plain version on the card (tests/test_torch_port_cuda.py, chip_smoke.py).
+`prim_pallas_gn_silu.npz`; on contiguous and on channels-last input (the
+layout the kernel and the models use). The kernel's plan (`gn_plan`) at the
+sd2_base towers' GroupNorm shapes. The CUDA kernel itself is held against the
+same plain version on the card (tests/test_torch_port_cuda.py, chip_smoke.py).
 
 Tolerances: fp32 1e-5 (sums in another order). bf16: the GroupNorm within one
 unit in the last place of the reference's rounding; after SiLU the port is
@@ -18,14 +20,20 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from difashion_tpu.nn.pallas.groupnorm import _gn_silu_ref, group_norm_act
+from difashion_tpu.nn.pallas.groupnorm import _gn_silu_ref, _pallas_gn_silu, group_norm_act
+from difashion_tpu_torch.config import ModelConfig
+from difashion_tpu_torch.models.difashion import DiFashion
 from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.kernels.groupnorm import (
+    ONE_READ_MIN_ROW_BYTES,
+    ONE_READ_TIERS,
     GroupNormSiLU,
-    chunking,
+    channels_last,
+    gn_plan,
     group_norm_silu,
+    group_norm_silu_grads,
     group_norm_silu_ref,
-    tile_elements,
+    is_channels_last,
 )
 from difashion_tpu_torch.nn.layers import GroupNorm
 
@@ -58,6 +66,11 @@ def _inputs(shape, seed=0, offset=0.5):
 
 def nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+def cl(x):
+    """NHWC numpy -> the channels-last [B, C, H, W] view of the same memory."""
+    return torch.from_numpy(np.array(x)).permute(0, 3, 1, 2)
 
 
 def nhwc(t):
@@ -151,6 +164,33 @@ def test_function_matches_jax_custom_vjp(shape, groups, act):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("offset", [0.5, 100.0])
+def test_written_out_backward_matches_autograd(dtype, act, offset):
+    """`group_norm_silu_grads` (GroupNormSiLU's backward) against autograd
+    through the plain version, on channels-last x: fp32 within 1e-5 of the
+    largest gradient; in bf16 dx within one unit in its last place (both
+    round the same fp32 value), dscale and dbias (fp32) within 1e-5. Also at
+    |mean| >> std, where x * rstd - mean * rstd would cancel."""
+    x, s, b = _inputs((2, 6, 5, 40), seed=8, offset=offset)
+    ct = np.random.RandomState(9).randn(2, 6, 5, 40).astype(np.float32)
+    leaves = [cl(x).to(dtype).requires_grad_(), torch.from_numpy(s).requires_grad_(),
+              torch.from_numpy(b).requires_grad_()]
+    dy = cl(ct).to(dtype)
+    group_norm_silu_ref(*leaves, 8, 1e-5, act).backward(dy)
+    got = group_norm_silu_grads(*(t.detach() for t in leaves), dy, 8, 1e-5, act)
+    assert is_channels_last(got[0])
+    for g, t in zip(got, leaves):
+        want = t.grad
+        assert g.dtype == want.dtype and g.shape == want.shape
+        diff = (g.float() - want.float()).abs()
+        tol = 1e-5 * want.float().abs().max()
+        if g.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * want.float().abs()
+        assert (diff <= tol).all(), (diff.max(), tol.max() if tol.dim() else tol)
+
+
 def test_function_backward_dtypes_follow_the_plain_version():
     """bf16 x with fp32 scale and bias (the autocast case), with and without
     CPU autocast: the gradients come back in the dtype of each input."""
@@ -207,27 +247,158 @@ def test_module_routes_and_switch():
         GroupNorm(8, 32, act="gelu")
 
 
-@pytest.mark.parametrize("span,n_groups,dtype", [
-    (122_880, 16 * 32, torch.bfloat16),    # UNet 64x64 up-level norm over 960 channels
-    (1_048_576, 64 * 32, torch.bfloat16),  # VAE 512x512 level at the precompute batch
-    (1_048_576, 4 * 32, torch.float32),    # VAE decode at batch 4
-    (2_560, 16 * 32, torch.bfloat16),      # UNet 8x8 level: one partial tile
-    (2, 2, torch.float16),                 # one element per channel
+GN_PATHS = ("sampler_unet", 16), ("train_unet", 8), ("vae_decode", 4), ("vae_encode", 64)
+
+
+def _sd2_sites(path, batch):
+    """{(shape, groups)} of the GroupNorm calls of one sd2_base path, from a
+    forward on the meta device (shapes only)."""
+    cfg = ModelConfig.sd2_base()
+    with torch.device("meta"):
+        model = DiFashion(cfg)
+    sites = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: sites.add((tuple(args[0].shape), mod.num_groups)))
+        for m in model.modules() if isinstance(m, GroupNorm)]
+    u, v = cfg.unet, cfg.vae
+    meta = lambda *shape: torch.empty(*shape, device="meta")
+    with torch.no_grad(), kernels.plain_versions():
+        if path.endswith("unet"):
+            model.unet(meta(batch, u.in_channels, u.sample_size, u.sample_size),
+                       torch.zeros(batch, dtype=torch.long, device="meta"),
+                       meta(batch, 77, u.cross_attention_dim))
+        elif path == "vae_decode":
+            model.vae.decode(meta(batch, v.latent_channels, u.sample_size, u.sample_size))
+        else:
+            model.vae.encode(meta(batch, v.in_channels, v.sample_size, v.sample_size))
+    for h in hooks:
+        h.remove()
+    return sorted(sites)
+
+
+def _covers(plan, shape, groups):
+    """The plan's units tile x: every row of S in exactly one CTA or chunk."""
+    s = int(np.prod(shape[2:]))
+    assert (plan.n - 1) * plan.rows < s <= plan.n * plan.rows
+    assert groups % plan.k == 0
+
+
+@pytest.mark.parametrize("path,batch", GN_PATHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_at_the_sd2_base_sites(path, batch, dtype):
+    """Every UNet GroupNorm is one read: a band of k groups whose channels
+    make a multiple of 16 bytes (the smallest such k), in TMA boxes of at
+    most 256 rows, in a cluster of at most 16 CTAs whose slices fit two to an
+    SM. A VAE level is one read where its band rows hold at least
+    ONE_READ_MIN_ROW_BYTES and its band fits 16 such slices (in bf16 the
+    64x64 and 128x128 levels at 512 channels); two passes otherwise (the
+    512x512 levels: 4 MB a band; the 256x256 ones)."""
+    item = dtype.itemsize
+    largest = max(b for _, b in ONE_READ_TIERS)
+    for shape, groups in _sd2_sites(path, batch):
+        plan = gn_plan(shape, groups, dtype)
+        cg = shape[1] // groups
+        _covers(plan, shape, groups)
+        k = 16 // np.gcd(cg * item, 16)
+        row_bytes = k * cg * item
+        fits = row_bytes >= ONE_READ_MIN_ROW_BYTES and shape[2] * shape[3] * row_bytes <= 16 * largest
+        assert plan.route == ("one_read" if fits else "two_pass"), (shape, plan)
+        if path.endswith("unet") or (dtype == torch.bfloat16 and shape[1] == 512
+                                     and shape[2] <= 128):
+            assert plan.route == "one_read", (shape, plan)
+        if shape[2] == 512:
+            assert plan.route == "two_pass", (shape, plan)
+        if plan.route == "two_pass":
+            assert plan.vector and plan.k == groups         # whole rows, 16-byte vectors
+            continue
+        assert plan.k == k and row_bytes % 16 == 0 and plan.k * cg <= 256
+        assert 1 <= plan.n <= 16 and plan.box_rows <= 256 and plan.box_rows % 8 == 0
+        assert plan.rows % plan.box_rows == 0
+        assert plan.slice_bytes(cg, item) <= largest
+
+
+@pytest.mark.parametrize("shape,groups,dtype,aligned,want", [
+    ((2, 33, 5, 7), 3, torch.bfloat16, True, ("two_pass", False)),   # 66-byte rows: no TMA
+    ((2, 36, 5, 7), 3, torch.bfloat16, True, ("two_pass", False)),   # 72-byte rows: no TMA
+    ((2, 64, 16, 16), 8, torch.bfloat16, False, ("two_pass", False)),  # x not 16-byte aligned
+    ((2, 96, 7, 7), 32, torch.float16, True, ("one_read", True)),    # cg 3: k 8, S ragged
+    ((2, 4, 1, 1), 2, torch.float32, True, ("two_pass", True)),      # 16-byte band rows
+    ((2, 16, 1, 1), 2, torch.float32, True, ("one_read", True)),     # one element per channel
+    ((1, 2048, 4, 4), 1, torch.bfloat16, True, ("two_pass", True)),  # a group beyond a band
 ])
-def test_chunking_covers_every_group(span, n_groups, dtype):
-    chunks, per_chunk = chunking(span, n_groups, dtype)
-    tile = tile_elements(dtype)
-    tiles = -(-span // tile)
-    assert 1 <= chunks <= 65535 and per_chunk >= 1
-    # every chunk starts inside the span, and together they cover it
-    assert (chunks - 1) * per_chunk < tiles <= chunks * per_chunk
-    assert tile == 256 * 2 * 16 // dtype.itemsize
-    if n_groups * tiles >= 2048:
-        assert n_groups * chunks >= min(2048, n_groups * tiles) // 2
+def test_plan_routes(shape, groups, dtype, aligned, want):
+    plan = gn_plan(shape, groups, dtype, aligned=aligned)
+    assert (plan.route, plan.vector) == want
+    _covers(plan, shape, groups)
+    vec = 16 // dtype.itemsize if plan.vector else 1
+    assert (plan.k * (shape[1] // groups)) % vec == 0
+
+
+def test_plan_refuses_a_band_beyond_the_block():
+    with pytest.raises(ValueError):
+        gn_plan((1, 4097, 2, 2), 1, torch.bfloat16)   # 4097 scalar channels in one group
+
+
+@pytest.mark.parametrize("cg,groups", [(4, 8), (10, 32), (30, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_plain_version_channels_last_matches_pallas_kernel(cg, groups, dtype, act):
+    """The plain version on a channels-last view of [B, S, C] numbers against
+    `_pallas_gn_silu` (interpret mode) and `_gn_silu_ref` on the same [B, S, C]
+    array, and against itself on a contiguous copy. fp32 within 1e-5. bf16:
+    without SiLU within one unit in the last place of either. With SiLU the
+    orders differ (the Pallas kernel rounds once after an fp32 SiLU of the
+    unrounded y, `_gn_silu_ref` rounds the sigmoid; the port rounds y, then
+    SiLU): within one unit of SiLU on the Pallas kernel's rounded y, and
+    within two of `_gn_silu_ref`'s own bf16 SiLU."""
+    c = cg * groups
+    x, s, b = _inputs((2, 5, 6, c), seed=7)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    xj = jnp.asarray(x).astype(jdt)
+    x = np.asarray(xj.astype(jnp.float32))
+    flat = xj.reshape(2, 30, c)
+    act_name = act or "none"
+    want_k = np.asarray(_pallas_gn_silu(flat, jnp.asarray(s), jnp.asarray(b), groups, 1e-6,
+                                        act_name, interpret=True).astype(jnp.float32))
+    want_r = np.asarray(_gn_silu_ref(flat, jnp.asarray(s), jnp.asarray(b), groups, 1e-6,
+                                     act_name).astype(jnp.float32))
+    xt = cl(x).to(getattr(torch, dtype))
+    assert is_channels_last(xt) and not xt.is_contiguous()
+    got_t = group_norm_silu_ref(xt, torch.from_numpy(s), torch.from_numpy(b), groups, 1e-6, act)
+    assert is_channels_last(got_t) and got_t.dtype == xt.dtype
+    again = group_norm_silu_ref(xt.contiguous(), torch.from_numpy(s), torch.from_numpy(b),
+                                groups, 1e-6, act)
+    assert torch.equal(got_t, again)
+    got = got_t.float().permute(0, 2, 3, 1).reshape(2, 30, c).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want_k, **TOL)
+        np.testing.assert_allclose(got, want_r, **TOL)
+        return
+    if act is not None:
+        pre_k = _pallas_gn_silu(flat, jnp.asarray(s), jnp.asarray(b), groups, 1e-6, "none",
+                                interpret=True)
+        want_k = F.silu(torch.from_numpy(np.asarray(pre_k.astype(jnp.float32))).bfloat16())
+        want_k = want_k.float().numpy()
+    assert (np.abs(got - want_k) <= _ulp_bf16(want_k)).all()
+    assert (np.abs(got - want_r) <= (1 if act is None else 2) * _ulp_bf16(want_r)).all()
+
+
+def test_channels_last_helpers():
+    x = torch.randn(2, 8, 3, 5)
+    y = channels_last(x)
+    assert is_channels_last(y) and torch.equal(x, y)
+    assert y.stride() == x.contiguous(memory_format=torch.channels_last).stride()
+    assert channels_last(y) is y and not is_channels_last(x)
+    v = torch.randn(2, 6, 7)                      # [B, C, L]: channels innermost
+    assert is_channels_last(channels_last(v)) and torch.equal(channels_last(v), v)
 
 
 def test_kernel_source_and_registry():
     src = open(os.path.join(kernels.CSRC_DIR, "group_norm_silu.cu")).read()
     assert "groupnorm.py::_gn_silu_kernel" in src
     assert 'extern "C" int group_norm_silu' in src
+    # the one-read route: clusters, DSMEM and TMA
+    for needle in ("cudaLaunchAttributeClusterDimension", "ld_dsmem_f32", "tma_load_3d",
+                   "tma_store_3d"):
+        assert needle in src
     assert "group_norm_silu" in kernels.KERNELS and "group_norm_silu" in kernels.LAUNCHES
