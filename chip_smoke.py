@@ -83,8 +83,10 @@ line each:
      times, the plain versions', the library backward's, the bounds and each
      kernel's share of its bound, the dK/dV split count and the wrapper's
      host microseconds per call, also at sd15's training shapes (d = 40 and
-     80, read in place); and the fp32 dQ and dK/dV kernels against the fp32
-     plain backward at the training shapes;
+     80, read in place); and the fp32 dQ and dK/dV kernels (3xTF32 on the
+     tensor cores) against the fp32 plain backward at the training shapes,
+     with each kernel's share of its 3xTF32 bound and of the SIMT bound the
+     earlier fp32 kernels were read against;
   9. train_reference: the training loss and its gradients at the tiny config
      with injected draws, on the card in bf16 autocast through all three
      kernels, against the CPU in fp32 (the CPU's own bf16 run beside);
@@ -104,7 +106,13 @@ line each:
      batch (the VAE encoder inside the step);
  12. profile_train: one training step by CUDA kernel (the layout and copy
      buckets on their own) and its split into forward, backward and
-     optimizer/EMA.
+     optimizer/EMA;
+ 13. train_fp32: one full-width sd2_base train step with
+     mixed_precision="no" (fp32 throughout, the path the JAX package's
+     train command builds for any precision but bf16), 8 rows, after one
+     warm-up step: seconds by CUDA events, peak memory, launches (the fp32
+     forward, dQ and dK/dV kernels under every attention), and one profiled
+     step's device time with the fp32 dQ and dK/dV kernels' share.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
@@ -120,7 +128,8 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12      # outside the tensor cores: the fp32 kernels use no tf32
+PEAK_FP32_FLOPS = 67e12      # outside the tensor cores: the fp32 forward (SIMT FFMA)
+PEAK_TF32_FLOPS = 495e12     # the tensor cores' TF32 rate: the fp32 backward runs 3xTF32
 PEAK_HBM_BYTES = 3.35e12
 
 # kernel vs plain, bf16 inputs: P is rounded to bf16 before the PV product
@@ -130,10 +139,14 @@ MAX_ABS_TOL, MEAN_ABS_TOL = 3e-2, 3e-3
 # the LSE is fp32 from the same bf16 products: ex2.approx and another
 # summation order only
 LSE_TOL = 1e-3
-# the fp32 kernels vs their plain versions in fp32 (no tf32 on either side):
-# fp32 sums in another order and exp2f for exp. The forward's O and LSE
-# within 2e-5; a backward gradient within 2e-5 relative L2 (sums of up to
-# 4096 terms: about sqrt(4096) * 2^-24 = 4e-6, with margin)
+# the fp32 kernels vs their plain versions in fp32 (TF32 off for PyTorch's
+# products): fp32 sums in another order and exp2f for exp. The forward is
+# SIMT FFMA; the backward runs 3xTF32 on the tensor cores (each operand split
+# into a TF32 high part and remainder, three products summed: about 2^-22 of
+# a product, where fp32 keeps 2^-24), which keeps fp32 accuracy and so is not
+# a TF32 pass that allow_tf32 would gate. The forward's O and LSE within
+# 2e-5; a backward gradient within 2e-5 relative L2 (sums of up to 4096
+# terms: about sqrt(4096) * 3 * 2^-22 = 5e-6, with margin)
 F32_TOL = 2e-5
 # the tiny path in fp32 on the card vs the CPU's fp32 run: the same
 # arithmetic in fp32 (TF32 off for matmuls and convolutions) with sums in
@@ -263,17 +276,34 @@ def attention_bound(b, h, sq, skv, d, dtype=None):
 def backward_bound(kind, b, h, sq, skv, d, dtype=None):
     """(bound ms, 'operations' or 'bytes', ops, bytes) of one backward kernel:
     dQ is 3 products (6*B*H*Sq*Skv*d operations), dK/dV 4 (8*B*H*Sq*Skv*d),
-    at the bf16 tensor-core rate (fp32's outside them for fp32); q, k, v and
+    at the rate of the kernel's design: the bf16 tensor-core rate, and for
+    fp32 three times the operations (3xTF32) at the TF32 rate; q, k, v and
     dO read once in the input dtype, the LSE and D once in fp32, the
     kernel's gradients written once in the input dtype."""
     f32 = dtype is not None and str(dtype) == "torch.float32"
-    products = 3 if kind == "dq" else 4
-    ops = 2.0 * products * b * h * sq * skv * d
-    written = sq if kind == "dq" else 2 * skv
-    nbytes = (4.0 if f32 else 2.0) * b * h * d * (2 * sq + 2 * skv + written) + 8.0 * b * h * sq
-    t_ops = ops / (PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    ops = _backward_ops(kind, b, h, sq, skv, d)
+    nbytes = _backward_bytes(kind, b, h, sq, skv, d, 4.0 if f32 else 2.0)
+    t_ops = 3 * ops / PEAK_TF32_FLOPS if f32 else ops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def simt_bound_ms(kind, b, h, sq, skv, d):
+    """The fp32 backward kernel's bound as SIMT FFMA would have it (the
+    operations at the fp32 rate outside the tensor cores, or the bytes):
+    the bound the fp32 backward's shares were read against before it moved
+    to the tensor cores, kept for comparison."""
+    t_ops = _backward_ops(kind, b, h, sq, skv, d) / PEAK_FP32_FLOPS
+    return max(t_ops, _backward_bytes(kind, b, h, sq, skv, d, 4.0) / PEAK_HBM_BYTES) * 1e3
+
+
+def _backward_ops(kind, b, h, sq, skv, d):
+    return 2.0 * (3 if kind == "dq" else 4) * b * h * sq * skv * d
+
+
+def _backward_bytes(kind, b, h, sq, skv, d, size):
+    written = sq if kind == "dq" else 2 * skv
+    return size * b * h * d * (2 * sq + 2 * skv + written) + 8.0 * b * h * sq
 
 
 def rel_l2(a, b):
@@ -545,7 +575,8 @@ def phase_kernel_bwd(sites, sd15_sites):
     sd15 UNet's shapes (d = 40 and 80, which the kernels read in place); in
     fp32 (the fp32 kernels, at the training shapes) the kernels are held
     against the plain backward in fp32 itself. Per site also each kernel's
-    share of its bound (`dq_share`, `dkv_share`), the dK/dV kernel's split
+    share of its bound (`dq_share`, `dkv_share`; in fp32 also of the SIMT
+    bound, `dq_simt_share`, `dkv_simt_share`), the dK/dV kernel's split
     count and the wrappers' host microseconds per call. Returns the bf16,
     fp32 and sd15 rows."""
     import torch
@@ -625,7 +656,11 @@ def phase_kernel_bwd(sites, sd15_sites):
                         f"{kind}_share": bound_ms / row[f"{kind}_ms"],
                         f"{kind}_tflops": ops / row[f"{kind}_ms"] / 1e9,
                         f"{kind}_gbytes_per_s": nbytes / row[f"{kind}_ms"] / 1e6})
-        row["dkv_splits"] = 1 if f32 else dkv_splits(b, h, sq, skv, d)
+            if f32:
+                simt = simt_bound_ms(kind, b, h, sq, skv, d)
+                row.update({f"{kind}_simt_bound_ms": simt,
+                            f"{kind}_simt_share": simt / row[f"{kind}_ms"]})
+        row["dkv_splits"] = dkv_splits(b, h, sq, skv, d, dtype)
         calls = 20 if f32 else 100
         row["dq_host_us"] = host_us_per_call(lambda: flash_attention_dq(*args), calls=calls)
         row["dkv_host_us"] = host_us_per_call(lambda: flash_attention_dkv(*args), calls=calls)
@@ -1731,6 +1766,9 @@ PROFILE_CATEGORIES = [
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_dq", ("flash_dq_kernel",)),
     ("flash_attention_dkv", ("flash_dkv_kernel",)),
+    ("flash_attention_fwd_f32", ("fwd_f32_kernel",)),
+    ("flash_attention_dq_f32", ("dq_tc_kernel", "dq_wg_kernel")),
+    ("flash_attention_dkv_f32", ("dkv_tc_kernel", "dkv_wg_kernel", "dkv_f32_reduce_kernel")),
     ("layout NCHW<->NHWC", ("nchwToNhwc", "nhwcToNchw")),
     ("norm statistics", ("layer_norm", "RowwiseMoments", "group_norm", "GroupNorm")),
     ("convolution", ("fprop", "dgrad", "wgrad", "implicit_gemm", "conv", "cudnn")),
@@ -2106,6 +2144,66 @@ def phase_profile_train(model):
     torch.cuda.empty_cache()
 
 
+def phase_train_fp32(model):
+    """One full-width train step in fp32: the sd2_base recipe with
+    mixed_precision="no" (autocast off, fp32 throughout: what a model built
+    for any precision but "bf16" trains with), 8 rows, through
+    build_train_step. One warm-up step, then one step timed with CUDA events
+    (its seconds, peak memory and launches: the fp32 forward, dQ and dK/dV
+    kernels under each of the 32 attentions, no 16-bit flash kernel), then
+    one step under torch.profiler: device time by kernel and the fp32 dQ and
+    dK/dV kernels' share of it. Returns the numbers."""
+    import torch
+
+    from difashion_tpu_torch.config import TrainConfig
+    from difashion_tpu_torch.engine.train import build_train_step
+    from difashion_tpu_torch.nn import kernels
+
+    tc = TrainConfig(mixed_precision="no")
+    batch, null_latent, null_text = train_inputs(model, tc, seed=9)
+    gen = torch.Generator(device="cuda").manual_seed(tc.seed)
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    step, init = build_train_step(model, tc)
+    state = init()
+    b0, b1 = batch(), batch()
+    state, _ = step(state, b0, null_latent, null_text, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    state, m = step(state, b1, null_latent, null_text, gen)
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: step(state, b0, null_latent, null_text, gen), top=12)
+    bwd_ms = sum(prof["by_category_ms"].get(k, 0.0)
+                 for k in ("flash_attention_dq_f32", "flash_attention_dkv_f32"))
+    out = {"seconds_per_step": ev[0].elapsed_time(ev[1]) / 1e3, "peak_memory_bytes": peak,
+           "dq_dkv_f32_device_ms": bwd_ms,
+           "dq_dkv_f32_share_of_device": bwd_ms / prof["device_kernel_ms"],
+           "loss": float(m["loss"]), "update_skipped": float(m["update_skipped"])}
+    emit({"phase": "train_fp32", "config": "sd2_base",
+          "recipe": 'TrainConfig(mixed_precision="no")', "rows_per_step": TRAIN_ROWS,
+          "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32},
+          **out, "launches": launches, "profile": prof})
+    del state
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    flash = {k: v for k, v in launches.items() if k.startswith("flash")}
+    want = {k: (32 if k.endswith("_f32") else 0) for k in flash}
+    if not (flash == want and math.isfinite(out["loss"]) and out["update_skipped"] == 0.0
+            and launches["group_norm_silu"] == count_groupnorms(model.unet)):
+        raise AssertionError(f"train_fp32: launches {launches}, loss {out['loss']}, "
+                             f"skipped {out['update_skipped']}")
+    return out
+
+
 def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
     """A kernel's entry of the kernels line: its numbers (`<prefix>ms`,
     `<prefix>plain_ms`, `<prefix>bound_ms`, `library_ms`) summed over the
@@ -2118,7 +2216,7 @@ def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
                    [r for r in main if r[f"{prefix}bound_by"] == "operations"])
     keys = ("site", "shape_bhqkd", calls, f"{prefix}ms", f"{prefix}plain_ms", "library_ms",
             f"{prefix}bound_ms", f"{prefix}bound_by", f"{prefix}max_abs_err", f"{prefix}share",
-            f"{prefix}host_us", "dkv_splits")
+            f"{prefix}host_us", f"{prefix}simt_bound_ms", f"{prefix}simt_share", "dkv_splits")
     source = extra.pop("source", f"difashion_tpu_torch/csrc/{name}.cu")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": extra.pop("replaces"), "launches": launches,
@@ -2182,14 +2280,16 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
 
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                  precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
-                 f32_results, bwd_f32_results, f32_launches, bwd_sd15_results):
+                 f32_results, bwd_f32_results, f32_launches, bwd_sd15_results, train_fp32):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
     step's; the fp32 kernels' numbers are per sampler UNet forward and per
     train step in fp32 and their launches the fp32 tiny path's (generation
-    and a training step: `phase_fp32_reference`); the GroupNorm kernel's as
-    `gn_entry` says, the skinny-N kernel's as `mm_entry` says."""
+    and a training step: `phase_fp32_reference`), the fp32 backward's with
+    its SIMT bound beside and the full-width fp32 step's numbers
+    (`phase_train_fp32`); the GroupNorm kernel's as `gn_entry` says, the
+    skinny-N kernel's as `mm_entry` says."""
     fwd_rows = [dict(r, ms=r["kernel_ms"]) for r in results]
     sd15_rows = [dict(r, ms=r["kernel_ms"]) for r in sd15_results]
     f32_rows = [dict(r, ms=r["kernel_ms"]) for r in f32_results]
@@ -2197,6 +2297,8 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                "together: the same number on both backward entries")
     pallas = "difashion_tpu/nn/pallas/flash_attention.py:"
     f32_source = "difashion_tpu_torch/csrc/flash_attention_f32.cu"
+    f32_simt = lambda prefix: sum(r[f"{prefix}simt_bound_ms"] * r["calls_per_train_step"]
+                                  for r in bwd_f32_results)
     sd15 = kernel_entry("flash_attention_fwd", sd15_rows, "calls_per_unet_forward", "",
                         "one sd15 UNet forward, d <= 128", 0, replaces=pallas + "50")
 
@@ -2232,11 +2334,13 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
         kernel_entry("flash_attention_dq_f32", bwd_f32_results, "calls_per_train_step", "dq_",
                      "one train step in fp32", f32_launches["flash_attention_dq_f32"],
                      replaces=pallas + "145", library=library, source=f32_source,
-                     main_path_launches=launches["flash_attention_dq_f32"]),
+                     main_path_launches=launches["flash_attention_dq_f32"],
+                     simt_bound_ms=f32_simt("dq_"), train_fp32=train_fp32),
         kernel_entry("flash_attention_dkv_f32", bwd_f32_results, "calls_per_train_step", "dkv_",
                      "one train step in fp32", f32_launches["flash_attention_dkv_f32"],
                      replaces=pallas + "191", library=library, source=f32_source,
-                     main_path_launches=launches["flash_attention_dkv_f32"]),
+                     main_path_launches=launches["flash_attention_dkv_f32"],
+                     simt_bound_ms=f32_simt("dkv_"), train_fp32=train_fp32),
         gn_entry(gn_results, launches, train_launches, precompute_launches),
         mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
                  serve_launches),
@@ -2290,9 +2394,10 @@ def main():
     phase_unet_grad(model, mm_paths)
     train_launches = phase_train(model, mm_paths)
     phase_profile_train(model)
+    train_fp32 = phase_train_fp32(model)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
-                      f32_results, bwd_f32_results, f32_launches, bwd_sd15_results))
+                      f32_results, bwd_f32_results, f32_launches, bwd_sd15_results, train_fp32))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

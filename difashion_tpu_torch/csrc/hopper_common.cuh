@@ -15,7 +15,8 @@
 //     fence / commit / wait, and mma_async m64nNk16 with fp32 accumulators and
 //     B either K-major or MN-major (the instruction's transpose bit): A in
 //     shared memory (SS; N = 64, 80, 96, 128, 160, 176, 256) or in registers (RS;
-//     N = 64, 128);
+//     N = 64, 128); and m64nNk8 on tf32, K-major only, SS (N = 32, 64) or RS
+//     (N = 64) (the fp32 backward's 3xTF32);
 //   - fence.proxy.async, named barriers and setmaxnreg.
 //
 //   - thread-block clusters: the CTA's rank, the split cluster barrier, and
@@ -567,6 +568,46 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   } else {
     if constexpr (bf16) HOPPER_WGMMA_RS_N128("bf16"); else HOPPER_WGMMA_RS_N128("f16");
   }
+}
+
+// tf32 (k8): d (+)= A . B for a 64 x 8 A and an 8 x N B of tf32 values (fp32
+// words whose 13 low mantissa bits the tensor core ignores), both K-major
+// (the instruction has no transpose for tf32): A in shared memory (SS; N = 64
+// or 32) or in four registers a thread, (row g, k t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4) of warp w's rows 16w..16w+15 (RS; N = 64); scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_tf32_ss64(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[16], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, "
+      "1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 #undef HOPPER_WGMMA_SS_N64

@@ -16,9 +16,15 @@ Ports of `difashion_tpu/nn/pallas/flash_attention.py`:
     order, into a workspace the wrapper allocates.
   The 16-bit kernels are built the same way (TMA, wgmma, warp
   specialisation, persistent grids) and read the head dim in place.
-  * all three for fp32 inputs -> `csrc/flash_attention_f32.cu` (SIMT FFMA,
-    no tf32, no 16-bit rounding), counted as `flash_attention_fwd_f32`,
-    `flash_attention_dq_f32` and `flash_attention_dkv_f32`.
+  * all three for fp32 inputs -> `csrc/flash_attention_f32.cu`, counted as
+    `flash_attention_fwd_f32`, `flash_attention_dq_f32` and
+    `flash_attention_dkv_f32`. The forward is SIMT FFMA. dQ and dK/dV run on
+    the tensor cores in 3xTF32 (wgmma tf32 at head dims 33..64, mma.sync tf32
+    at the others): each fp32 operand is split into a TF32 high part and a
+    TF32 remainder (`tf32_split`) and three products are summed, which keeps
+    fp32 accuracy, so unlike one TF32 pass it is not gated by
+    `torch.backends.cuda.matmul.allow_tf32`; dK/dV splits the query range as
+    the 16-bit kernel does (`dkv_splits`). No 16-bit rounding anywhere.
 D = rowsum(dO * O) is plain torch in fp32 (`attention_delta`), as the JAX
 package leaves it to XLA. `FlashAttention` is the counterpart of the
 `_flash_core` custom VJP: its forward saves q, k, v, o and the LSE, its
@@ -37,7 +43,9 @@ kernel does not take. For CPU tensors it computes its plain version
 (`flash_attention_ref`, `flash_attention_dq_ref`, `flash_attention_dkv_ref`),
 which the CPU tests hold against the JAX kernels. The plain backward rounds P
 and dS to the input dtype before their products, as the kernels do (a no-op
-in fp32).
+in fp32). `flash_attention_bwd_3xtf32_ref` is the fp32 backward with every
+product's operands split where the fp32 kernels split them; only the tests
+use it.
 """
 from __future__ import annotations
 
@@ -59,6 +67,13 @@ FWD_HEAD_DIMS = (64, 128)              # the 16-bit kernels' padded head dims (T
 # builds it (kTile64, kTile128): (consumer warpgroups, i.e. a KV tile of 64
 # rows each; rows of a Q tile). The split plan reads it.
 DKV_TILES = {64: (2, 64), 128: (1, 64)}
+# The fp32 dK/dV kernels' tile per padded head dim, as csrc/flash_attention_f32.cu
+# builds them: (KV rows of a block, rows of a Q tile, blocks an SM holds). At
+# 64 the wgmma kernel (2 warpgroups of 64 KV rows, 32-row Q tiles, 195 KB of
+# shared memory); at 32 and 128 the mma.sync kernel (64 KV rows, 64-row Q
+# tiles, as many blocks as 6 tiles of 64 x DP floats leave room for). The
+# split plan reads it.
+F32_DKV_TILES = {32: (64, 64, 4), 64: (128, 32, 1), 128: (64, 64, 1)}
 SM_COUNT = 132                         # an H100 SXM's SMs: the split plan's target
 SPLIT_MIN_Q_TILES = 8                  # the fewest Q tiles a part of a split has
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -67,7 +82,9 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 def kernel_head_dim(d: int, dtype: torch.dtype, backward: bool = False) -> int:
     """The head dim the kernels are handed for a true head dim d <= 128, the
     same for the forward and (`backward=True`) the dQ and dK/dV kernels:
-      * fp32: d (the SIMT kernels take any d, padding their tiles in place);
+      * fp32: d (the fp32 kernels take any d, padding their tiles in place;
+        the backward's wgmma kernels read rows of 16 bytes, so d % 4 == 0,
+        the mma.sync ones any rows);
       * 16 bits: d where d % 8 == 0, read in place (the kernels' TMA boxes
         are 64 columns wide and zero-fill up to 64 or 128: sd15's 40 and 80
         need no copy); any other d rounded up to a multiple of 8 (a padded
@@ -80,20 +97,27 @@ def kernel_head_dim(d: int, dtype: torch.dtype, backward: bool = False) -> int:
     return -(-d // 8) * 8
 
 
-def dkv_splits(b: int, h: int, sq: int, skv: int, d: int) -> int:
+def dkv_splits(b: int, h: int, sq: int, skv: int, d: int,
+               dtype: torch.dtype = torch.bfloat16) -> int:
     """How many parts the dK/dV kernel splits the query range into, for a
-    16-bit call at head dim d <= 128 with its tile (`DKV_TILES`). Where its
-    (KV tile, batch * head) tiles leave most of SM_COUNT SMs idle, as many
-    parts as one wave of SMs takes, each of at least SPLIT_MIN_Q_TILES Q
-    tiles (a part's saving has to pay for the workspace pass), counted again
-    so that no part is empty; else 1. Of the training step's sites that
-    splits the 77-token cross-attention at 4096 tokens only (measured by
+    call at head dim d <= 128: in 16 bits with its tile (`DKV_TILES`, one
+    persistent block an SM), in fp32 with its (`F32_DKV_TILES`). Where the (KV tile,
+    batch * head) tiles leave most of a wave of blocks idle, as many parts as
+    one wave takes, each of at least SPLIT_MIN_Q_TILES Q tiles (a part's
+    saving has to pay for the workspace pass), counted again so that no part
+    is empty; else 1. Of the training step's sites that splits the 77-token
+    cross-attention at 4096 tokens only (measured in 16 bits by
     scripts/flash_bwd_tiles.py: at 1024 and 256 tokens the split ran
     slower)."""
-    nc, bq = DKV_TILES[64 if d <= 64 else 128]
-    tiles = -(-skv // (64 * nc)) * b * h
+    if dtype == torch.float32:
+        kv_rows, bq, per_sm = F32_DKV_TILES[32 if d <= 32 else 64 if d <= 64 else 128]
+        wave = SM_COUNT * per_sm
+    else:
+        nc, bq = DKV_TILES[64 if d <= 64 else 128]
+        kv_rows, wave = 64 * nc, SM_COUNT
+    tiles = -(-skv // kv_rows) * b * h
     q_tiles = -(-sq // bq)
-    splits = min(SM_COUNT // tiles, q_tiles // SPLIT_MIN_Q_TILES)
+    splits = min(wave // tiles, q_tiles // SPLIT_MIN_Q_TILES)
     if splits <= 1:
         return 1
     per = -(-q_tiles // splits)
@@ -141,18 +165,51 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).reshape(b * h, sq)
 
 
-def _probs(q, k, lse, scale):
+def _probs(q, k, lse, scale, mm=torch.matmul):
     """P = exp(scale * Q K^T - LSE) in fp32, [B, H, Sq, Skv]."""
     b, h, sq, _ = q.shape
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).mul_(scale)
+    s = mm(q.float(), k.float().transpose(-1, -2)).mul_(scale)
     return s.sub_(lse.reshape(b, h, sq, 1)).exp_()
 
 
-def _dscores(p, do, v, delta):
+def _dscores(p, do, v, delta, mm=torch.matmul):
     """dS = P * (dO V^T - D) in fp32; overwrites nothing of p."""
     b, h, sq, _ = p.shape
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    dp = mm(do.float(), v.float().transpose(-1, -2))
     return dp.sub_(delta.reshape(b, h, sq, 1)).mul_(p)
+
+
+_TF32_DROPPED = 0x1FFF          # the 13 low mantissa bits fp32 has and TF32 has not
+_FP32_EXPONENT = 0x7F800000
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as `cvt.rna.tf32.f32` does: half a TF32 unit added to the
+    magnitude's bits, then the low 13 bits cleared (a carry moves into the
+    exponent; subnormals round alike). Inf and NaN pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & ~_TF32_DROPPED
+    special = (bits & _FP32_EXPONENT) == _FP32_EXPONENT
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 x as the fp32 backward kernels split an operand:
+    hi = x rounded to TF32, lo = (x - hi) rounded to TF32, so that
+    hi + lo = x to about 2^-22 of x (both exact in fp32). hi of an inf or a
+    NaN is itself; lo is then NaN (inf - inf), as in the kernels."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_split: fp32 input, got {x.dtype}")
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in fp32 from 3xTF32 operands, as the fp32 backward kernels form
+    each product: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b); lo lo dropped."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return torch.matmul(al, bh).add_(torch.matmul(ah, bl)).add_(torch.matmul(ah, bh))
 
 
 def flash_attention_dq_ref(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
@@ -174,6 +231,25 @@ def flash_attention_dkv_ref(q, k, v, do, lse, delta, scale: float
     del p
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()).mul_(scale)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_3xtf32_ref(q, k, v, o, lse, do, scale: Optional[float] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fp32 backward as the fp32 dQ and dK/dV kernels round it: S, dP,
+    dQ, dK and dV each a 3xTF32 product (`_mm_3xtf32`) of fp32 operands, P
+    and dS in fp32 between them. For tests: the kernels' sums run in another
+    order, and their P is exp2 of base-2 logits."""
+    for t in (q, k, v, o, do):
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash_attention_bwd_3xtf32_ref: fp32 inputs, got {t.dtype}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = attention_delta(o, do)
+    p = _probs(q, k, lse, scale, _mm_3xtf32)
+    ds = _dscores(p, do, v, delta, _mm_3xtf32)
+    dq = _mm_3xtf32(ds, k).mul_(scale)
+    dk = _mm_3xtf32(ds.transpose(-1, -2), q).mul_(scale)
+    return dq, dk, _mm_3xtf32(p.transpose(-1, -2), do)
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: Optional[float] = None
@@ -254,13 +330,15 @@ def _strides(strided):
 def _launch(name: str, tensors, ints, strided, scale: float, dtype,
             entry: Optional[str] = None) -> None:
     """Call kernel `name` (its fp32 counterpart `<name>_f32` for fp32; the C
-    function `entry` of its source where given) on the current stream with
+    function `entry` of its source where given, `<entry>_f32` for fp32) on
+    the current stream with
     the data pointers of `tensors`, the ints, and the (batch, head, seq)
     element strides of the `strided` tensors; raise on a launch error; count
     the launch under `name`."""
     source = name
     if dtype == torch.float32:
         source, name = F32_SOURCE, f"{name}_f32"
+        entry = entry and f"{entry}_f32"
     strides = _strides(strided)
     st = (ctypes.c_int64 * len(strides))(*strides)
     fn = _fn(source, entry or name, len(tensors), len(ints))
@@ -339,16 +417,16 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
 def flash_attention_dkv(q, k, v, do, lse, delta, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [B, H, Skv, D] in the input dtype (memory [B, Skv, H, D]).
-    In 16 bits, where `dkv_splits` gives more than one part, the kernel's
-    fp32 partial sums go to a workspace of 2 * splits * B * H * Skv * D
-    values, which the same launch adds up (one counted launch)."""
+    Where `dkv_splits` gives more than one part, the kernel's fp32 partial
+    sums go to a workspace of 2 * splits * B * H * Skv * D values, which the
+    same launch adds up (one counted launch)."""
     if q.device.type == "cpu":
         return flash_attention_dkv_ref(q, k, v, do, lse, delta, scale)
     qp, kp, vp, dop = _bwd_inputs(q, k, v, do, lse, delta)
     b, h, sq, dp = qp.shape
     skv = k.shape[2]
     dk, dv = _empty_bshd(b, h, skv, dp, k), _empty_bshd(b, h, skv, dp, v)
-    splits = 1 if q.dtype == torch.float32 else dkv_splits(b, h, sq, skv, dp)
+    splits = dkv_splits(b, h, sq, skv, dp, q.dtype)
     if splits == 1:
         _launch(DKV_NAME, (qp, kp, vp, dop, lse, delta, dk, dv), (b, h, sq, skv, dp),
                 (qp, kp, vp, dop, dk, dv), scale, q.dtype)

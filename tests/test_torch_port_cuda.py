@@ -381,6 +381,71 @@ def test_f32_kernels_match_plain(dev, b, h, sq, skv, d):
         assert t.transpose(1, 2).is_contiguous()
 
 
+# Sq and Skv one below and one above the fp32 backward's 64-row tiles, and
+# head dims from 4 to 128 (d = 17: 4-byte copies)
+F32_EDGE_SHAPES = [
+    (1, 2, 63, 65, 64),
+    (1, 2, 65, 63, 64),
+    (1, 2, 127, 129, 64),
+    (2, 1, 129, 127, 64),
+    (1, 3, 100, 77, 4),
+    (2, 1, 130, 90, 20),
+    (1, 2, 100, 77, 36),
+    (1, 2, 130, 200, 100),
+    (1, 2, 200, 300, 128),
+    (1, 2, 70, 90, 17),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", F32_EDGE_SHAPES)
+def test_f32_backward_at_tile_edges(dev, b, h, sq, skv, d):
+    """The fp32 dQ and dK/dV kernels (3xTF32 on the tensor cores) at the
+    edges of their tiles: within 2e-5 per element of the fp32 plain
+    backward, within 2e-5 relative L2 of the plain 3xTF32 backward (which
+    splits where the kernels split), and bit-identical on a second call."""
+    from difashion_tpu_torch.nn.kernels.flash_attention import flash_attention_bwd_3xtf32_ref
+
+    q, k, v, do = (_proj(b, s, h, d, torch.float32, dev, seed)
+                   for s, seed in ((sq, 5), (skv, 6), (skv, 7), (sq, 8)))
+    scale = d ** -0.5
+    o, lse = flash_attention(q, k, v)
+    args = (q, k, v, do, lse, attention_delta(o, do), scale)
+    got = (flash_attention_dq(*args),) + flash_attention_dkv(*args)
+    again = (flash_attention_dq(*args),) + flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    plain = (flash_attention_dq_ref(*args),) + flash_attention_dkv_ref(*args)
+    split = flash_attention_bwd_3xtf32_ref(q, k, v, o, lse, do, scale)
+    for g, a, w, t in zip(got, again, plain, split):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        assert _rel(g, t) <= 2e-5
+
+
+def test_f32_dkv_split_path_is_deterministic(dev):
+    """The fp32 dK/dV of the 77-token cross-attention at 4096 tokens (the
+    training step's shape) through the split path (the query range in 3
+    parts, their fp32 partial sums added in split order by a second kernel
+    of the same launch): one counted launch a call, the same bits on a
+    second call, and the plain fp32 backward within 2e-5 relative L2 (the
+    bound of chip_smoke.py's kernel_bwd)."""
+    from difashion_tpu_torch.nn.kernels.flash_attention import dkv_splits
+
+    b, h, sq, skv, d = 8, 5, 4096, 77, 64
+    assert dkv_splits(b, h, sq, skv, d, torch.float32) == 3
+    q, k, v, do = (_proj(b, s, h, d, torch.float32, dev, seed)
+                   for s, seed in ((sq, 11), (skv, 12), (skv, 13), (sq, 14)))
+    o, lse = flash_attention(q, k, v)
+    args = (q, k, v, do, lse, attention_delta(o, do), d ** -0.5)
+    kernels.reset_launches()
+    dk, dv = flash_attention_dkv(*args)
+    dk2, dv2 = flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_dkv_f32"] == 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rdk, rdv = flash_attention_dkv_ref(*args)
+    assert _rel(dk, rdk) <= 2e-5 and _rel(dv, rdv) <= 2e-5
+
+
 @pytest.mark.parametrize("d", [40, 80, 160])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_sdpa_at_sd15_head_dims(dev, d, dtype):
