@@ -18,11 +18,14 @@ line each:
      the shapes of the sampler's UNet attentions (batch 16 = 4 CFG branches x
      4 items) and a few short and ragged ones, at the sd15 UNet's (batch 16,
      8 heads: 4096 tokens at d = 40, 1024 at d = 80, and their 77-token
-     cross-attentions), all in bf16, and the fp32 kernel at the sampler's
-     shapes in fp32; per site its time, the plain version's, one library
-     call's (F.scaled_dot_product_attention, timed as a yardstick only), the
-     card's lower bound for the same work and its share of it, TFLOP/s and
-     the wrapper's host microseconds per call;
+     cross-attentions), all in bf16, and the fp32 kernels (3xTF32 on the
+     tensor cores: wgmma at d = 64 and 40, mma.sync at 80) at the sampler's
+     shapes and sd15's in fp32; per site its time, the plain version's, one
+     library call's (F.scaled_dot_product_attention, timed as a yardstick
+     only), the card's lower bound for the same work and its share of it
+     (the fp32 rows also their share of the SIMT bound the earlier fp32
+     forward was read against), TFLOP/s and the wrapper's host microseconds
+     per call;
   3a. sd15_unet: one full-width sd15 UNet forward (bf16, seeded weights,
      batch 16) through the kernels against one through the plain versions
      (d = 40 and 80 on the forward kernel, d = 160 plain), both against fp32;
@@ -112,7 +115,8 @@ line each:
      train command builds for any precision but bf16), 8 rows, after one
      warm-up step: seconds by CUDA events, peak memory, launches (the fp32
      forward, dQ and dK/dV kernels under every attention), and one profiled
-     step's device time with the fp32 dQ and dK/dV kernels' share.
+     step's device time with the fp32 forward's share and the fp32 dQ and
+     dK/dV kernels'.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
@@ -128,8 +132,8 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12      # outside the tensor cores: the fp32 forward (SIMT FFMA)
-PEAK_TF32_FLOPS = 495e12     # the tensor cores' TF32 rate: the fp32 backward runs 3xTF32
+PEAK_FP32_FLOPS = 67e12      # outside the tensor cores: the SIMT bound kept beside the fp32 rows
+PEAK_TF32_FLOPS = 495e12     # the tensor cores' TF32 rate: the fp32 kernels run 3xTF32
 PEAK_HBM_BYTES = 3.35e12
 
 # kernel vs plain, bf16 inputs: P is rounded to bf16 before the PV product
@@ -140,13 +144,13 @@ MAX_ABS_TOL, MEAN_ABS_TOL = 3e-2, 3e-3
 # summation order only
 LSE_TOL = 1e-3
 # the fp32 kernels vs their plain versions in fp32 (TF32 off for PyTorch's
-# products): fp32 sums in another order and exp2f for exp. The forward is
-# SIMT FFMA; the backward runs 3xTF32 on the tensor cores (each operand split
-# into a TF32 high part and remainder, three products summed: about 2^-22 of
-# a product, where fp32 keeps 2^-24), which keeps fp32 accuracy and so is not
-# a TF32 pass that allow_tf32 would gate. The forward's O and LSE within
-# 2e-5; a backward gradient within 2e-5 relative L2 (sums of up to 4096
-# terms: about sqrt(4096) * 3 * 2^-22 = 5e-6, with margin)
+# products): fp32 sums in another order and exp2f for exp. The kernels run
+# 3xTF32 on the tensor cores (each operand split into a TF32 high part and
+# remainder, three products summed: about 2^-22 of a product, where fp32
+# keeps 2^-24), which keeps fp32 accuracy and so is not a TF32 pass that
+# allow_tf32 would gate. The forward's O and LSE within 2e-5 per element; a
+# backward gradient within 2e-5 relative L2 (sums of up to 4096 terms: about
+# sqrt(4096) * 3 * 2^-22 = 5e-6, with margin)
 F32_TOL = 2e-5
 # the tiny path in fp32 on the card vs the CPU's fp32 run: the same
 # arithmetic in fp32 (TF32 off for matmuls and convolutions) with sums in
@@ -262,15 +266,24 @@ def device_ms(fn, reps=25, warmup=3):
 
 def attention_bound(b, h, sq, skv, d, dtype=None):
     """(bound ms, 'operations' or 'bytes', ops, bytes): two products of
-    2*Sq*Skv*d each per (batch, head) at the tensor cores' bf16 rate (fp32's
-    rate outside them for an fp32 call: no tf32); q, k, v read once, o
-    written once in the input dtype, the LSE written once in fp32."""
+    2*Sq*Skv*d each per (batch, head) at the rate of the kernel's design:
+    the bf16 tensor-core rate, and for fp32 three times the operations
+    (3xTF32) at the TF32 rate; q, k, v read once, o written once in the
+    input dtype, the LSE written once in fp32."""
     f32 = dtype is not None and str(dtype) == "torch.float32"
-    ops = 4.0 * b * h * sq * skv * d
-    nbytes = (4.0 if f32 else 2.0) * b * h * d * (2 * sq + 2 * skv) + 4.0 * b * h * sq
-    t_ops = ops / (PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    ops = _forward_ops(b, h, sq, skv, d)
+    nbytes = _forward_bytes(b, h, sq, skv, d, 4.0 if f32 else 2.0)
+    t_ops = 3 * ops / PEAK_TF32_FLOPS if f32 else ops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def _forward_ops(b, h, sq, skv, d):
+    return 4.0 * b * h * sq * skv * d
+
+
+def _forward_bytes(b, h, sq, skv, d, size):
+    return size * b * h * d * (2 * sq + 2 * skv) + 4.0 * b * h * sq
 
 
 def backward_bound(kind, b, h, sq, skv, d, dtype=None):
@@ -289,12 +302,16 @@ def backward_bound(kind, b, h, sq, skv, d, dtype=None):
 
 
 def simt_bound_ms(kind, b, h, sq, skv, d):
-    """The fp32 backward kernel's bound as SIMT FFMA would have it (the
-    operations at the fp32 rate outside the tensor cores, or the bytes):
-    the bound the fp32 backward's shares were read against before it moved
-    to the tensor cores, kept for comparison."""
-    t_ops = _backward_ops(kind, b, h, sq, skv, d) / PEAK_FP32_FLOPS
-    return max(t_ops, _backward_bytes(kind, b, h, sq, skv, d, 4.0) / PEAK_HBM_BYTES) * 1e3
+    """An fp32 kernel's bound ("fwd", "dq" or "dkv") as SIMT FFMA would have
+    it (the operations at the fp32 rate outside the tensor cores, or the
+    bytes): the bound the fp32 kernels' shares were read against before they
+    moved to the tensor cores, kept for comparison."""
+    if kind == "fwd":
+        ops, nbytes = _forward_ops(b, h, sq, skv, d), _forward_bytes(b, h, sq, skv, d, 4.0)
+    else:
+        ops = _backward_ops(kind, b, h, sq, skv, d)
+        nbytes = _backward_bytes(kind, b, h, sq, skv, d, 4.0)
+    return max(ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
 
 
 def _backward_ops(kind, b, h, sq, skv, d):
@@ -325,21 +342,37 @@ def phase_device():
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
+def ptxas_entries(log):
+    """Each entry of an `nvcc -Xptxas -v` log: {kernel (its mangled name),
+    registers, spill store and load bytes}."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        out.append({"kernel": block.split("'", 1)[0],
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None,
+                    "spill_load_bytes": int(spill.group(2)) if spill else None})
+    return out
+
+
 def phase_build():
     from difashion_tpu_torch.nn import kernels
 
     t0 = time.perf_counter()
     logs = kernels.build_all()
     seconds = time.perf_counter() - t0
-    # registers, spills and warnings (a setmaxnreg the compiler ignored)
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln or "warning" in ln]
-             for name, log in logs.items()}
+    # registers and spills of every instantiation, and warnings (a setmaxnreg
+    # the compiler ignored)
+    ptxas = {name: ptxas_entries(log) for name, log in logs.items()}
+    warnings = {name: [ln.strip() for ln in log.splitlines() if "warning" in ln]
+                for name, log in logs.items()}
     # bytes of spill stores summed over each source's instantiations
-    spills = {name: sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log))
-              for name, log in logs.items()}
+    spills = {name: sum(e["spill_store_bytes"] or 0 for e in entries)
+              for name, entries in ptxas.items()}
     emit({"phase": "build", "kernels": list(logs), "seconds": seconds,
-          "spill_store_bytes": spills, "ptxas": ptxas})
+          "spill_store_bytes": spills, "ptxas": ptxas,
+          "warnings": {k: v for k, v in warnings.items() if v}})
 
 
 def phase_kernel(sites, sd15_sites):
@@ -347,8 +380,9 @@ def phase_kernel(sites, sd15_sites):
     version, SDPA (a yardstick only) and the bound, with its share of the
     bound, TFLOP/s and the wrapper's host microseconds per call: at the
     sampler's sites and EXTRA_SHAPES in bf16, the sd15 UNet's sites (d = 40
-    and 80) in bf16, and the sampler's sites in fp32 (the fp32 kernel, an
-    fp32 model's path). Returns the three lists of rows."""
+    and 80) in bf16, and the sampler's and sd15's sites in fp32 (the fp32
+    kernels, an fp32 model's path: wgmma at d = 64 and 40, mma.sync at 80;
+    beside the 3xTF32 bound, the SIMT one). Returns the four lists of rows."""
     import torch
     import torch.nn.functional as F
 
@@ -364,7 +398,9 @@ def phase_kernel(sites, sd15_sites):
               "sd15": [(n, b, h, sq, skv, d, c, torch.bfloat16)
                        for n, b, h, sq, skv, d, c in sd15_sites],
               "fp32": [(n, b, h, sq, skv, d, c, torch.float32)
-                       for n, b, h, sq, skv, d, c in sites]}
+                       for n, b, h, sq, skv, d, c in sites],
+              "sd15_fp32": [(n, b, h, sq, skv, d, c, torch.float32)
+                            for n, b, h, sq, skv, d, c in sd15_sites]}
     out = {}
     for config, shapes in groups.items():
         results = out[config] = []
@@ -404,20 +440,25 @@ def phase_kernel(sites, sd15_sites):
                    "share_of_bound": bound_ms / kernel_ms,
                    "tflops": ops / kernel_ms / 1e9, "gbytes_per_s": nbytes / kernel_ms / 1e6,
                    "host_us_per_call": host_us, "ok": ok}
+            if f32:
+                simt = simt_bound_ms("fwd", b, h, sq, skv, d)
+                row.update({"simt_bound_ms": simt, "simt_share": simt / kernel_ms})
             emit(row)
             results.append(row)
             del q, k, v, o, lse
             torch.cuda.empty_cache()
     rows = [r for rs in out.values() for r in rs]
+    # the SIMT bound only for the fp32 groups, whose rows carry it
     totals = {config: {key: sum(r[key] * r["calls_per_unet_forward"] for r in rs)
-                       for key in ("kernel_ms", "library_ms", "bound_ms", "plain_ms")}
+                       for key in ("kernel_ms", "library_ms", "bound_ms", "plain_ms",
+                                   "simt_bound_ms") if key in rs[0]}
               for config, rs in out.items()}
     emit({"phase": "kernel", "per_unet_forward": totals,
           "host_per_call": flash_host_per_call(sites[0])})
     bad = [(r["config"], r["site"]) for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain version at {bad}")
-    return out["sd2_base"], out["sd15"], out["fp32"]
+    return out["sd2_base"], out["sd15"], out["fp32"], out["sd15_fp32"]
 
 
 def flash_host_per_call(site):
@@ -1766,7 +1807,7 @@ PROFILE_CATEGORIES = [
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_dq", ("flash_dq_kernel",)),
     ("flash_attention_dkv", ("flash_dkv_kernel",)),
-    ("flash_attention_fwd_f32", ("fwd_f32_kernel",)),
+    ("flash_attention_fwd_f32", ("fwd_wg_kernel", "fwd_tc_kernel")),
     ("flash_attention_dq_f32", ("dq_tc_kernel", "dq_wg_kernel")),
     ("flash_attention_dkv_f32", ("dkv_tc_kernel", "dkv_wg_kernel", "dkv_f32_reduce_kernel")),
     ("layout NCHW<->NHWC", ("nchwToNhwc", "nhwcToNchw")),
@@ -2151,8 +2192,8 @@ def phase_train_fp32(model):
     build_train_step. One warm-up step, then one step timed with CUDA events
     (its seconds, peak memory and launches: the fp32 forward, dQ and dK/dV
     kernels under each of the 32 attentions, no 16-bit flash kernel), then
-    one step under torch.profiler: device time by kernel and the fp32 dQ and
-    dK/dV kernels' share of it. Returns the numbers."""
+    one step under torch.profiler: device time by kernel, the fp32 forward's
+    share of it and the fp32 dQ and dK/dV kernels'. Returns the numbers."""
     import torch
 
     from difashion_tpu_torch.config import TrainConfig
@@ -2182,7 +2223,10 @@ def phase_train_fp32(model):
     prof = device_profile(lambda: step(state, b0, null_latent, null_text, gen), top=12)
     bwd_ms = sum(prof["by_category_ms"].get(k, 0.0)
                  for k in ("flash_attention_dq_f32", "flash_attention_dkv_f32"))
+    fwd_ms = prof["by_category_ms"].get("flash_attention_fwd_f32", 0.0)
     out = {"seconds_per_step": ev[0].elapsed_time(ev[1]) / 1e3, "peak_memory_bytes": peak,
+           "fwd_f32_device_ms": fwd_ms,
+           "fwd_f32_share_of_device": fwd_ms / prof["device_kernel_ms"],
            "dq_dkv_f32_device_ms": bwd_ms,
            "dq_dkv_f32_share_of_device": bwd_ms / prof["device_kernel_ms"],
            "loss": float(m["loss"]), "update_skipped": float(m["update_skipped"])}
@@ -2280,19 +2324,22 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
 
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                  precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
-                 f32_results, bwd_f32_results, f32_launches, bwd_sd15_results, train_fp32):
+                 f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
+                 bwd_sd15_results, train_fp32):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
     step's; the fp32 kernels' numbers are per sampler UNet forward and per
     train step in fp32 and their launches the fp32 tiny path's (generation
-    and a training step: `phase_fp32_reference`), the fp32 backward's with
-    its SIMT bound beside and the full-width fp32 step's numbers
+    and a training step: `phase_fp32_reference`), each with its SIMT bound
+    beside, the forward's also per sd15 UNet forward in fp32 (d = 40 and
+    80), the backward's with the full-width fp32 step's numbers
     (`phase_train_fp32`); the GroupNorm kernel's as `gn_entry` says, the
     skinny-N kernel's as `mm_entry` says."""
     fwd_rows = [dict(r, ms=r["kernel_ms"]) for r in results]
     sd15_rows = [dict(r, ms=r["kernel_ms"]) for r in sd15_results]
     f32_rows = [dict(r, ms=r["kernel_ms"]) for r in f32_results]
+    sd15_f32_rows = [dict(r, ms=r["kernel_ms"]) for r in sd15_f32_results]
     library = ("F.scaled_dot_product_attention's backward, computing dQ, dK and dV "
                "together: the same number on both backward entries")
     pallas = "difashion_tpu/nn/pallas/flash_attention.py:"
@@ -2301,6 +2348,10 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                                   for r in bwd_f32_results)
     sd15 = kernel_entry("flash_attention_fwd", sd15_rows, "calls_per_unet_forward", "",
                         "one sd15 UNet forward, d <= 128", 0, replaces=pallas + "50")
+    sd15_f32 = kernel_entry("flash_attention_fwd_f32", sd15_f32_rows, "calls_per_unet_forward",
+                            "", "one sd15 UNet forward in fp32, d <= 128", 0,
+                            replaces=pallas + "50")
+    fwd_simt = lambda rows: sum(r["simt_bound_ms"] * r["calls_per_unet_forward"] for r in rows)
 
     def sd15_bwd(prefix, line):
         e = kernel_entry("flash_attention_" + prefix[:-1], bwd_sd15_results,
@@ -2330,7 +2381,13 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
         kernel_entry("flash_attention_fwd_f32", f32_rows, "calls_per_unet_forward", "",
                      "one sampler UNet forward in fp32",
                      f32_launches["flash_attention_fwd_f32"], replaces=pallas + "50",
-                     source=f32_source, main_path_launches=launches["flash_attention_fwd_f32"]),
+                     source=f32_source, main_path_launches=launches["flash_attention_fwd_f32"],
+                     simt_bound_ms=fwd_simt(f32_rows), train_fp32=train_fp32,
+                     sd15_per_unet_forward=dict(
+                         {k: sd15_f32[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                   "share_of_bound", "max_abs_err", "per",
+                                                   "shapes")},
+                         simt_bound_ms=fwd_simt(sd15_f32_rows))),
         kernel_entry("flash_attention_dq_f32", bwd_f32_results, "calls_per_train_step", "dq_",
                      "one train step in fp32", f32_launches["flash_attention_dq_f32"],
                      replaces=pallas + "145", library=library, source=f32_source,
@@ -2366,7 +2423,7 @@ def main():
         raise AssertionError(f"expected 32 attentions per UNet forward, got {sites}")
     sd15_sites = [s for s in main_path_attention_sites(ModelConfig.sd15(), UNET_BATCH)
                   if s[5] <= 128]
-    results, sd15_results, f32_results = phase_kernel(sites, sd15_sites)
+    results, sd15_results, f32_results, sd15_f32_results = phase_kernel(sites, sd15_sites)
     phase_sd15_unet()
     gn_results = phase_kernel_gn(groupnorm_sites(cfg))
     mm_paths = dense_sites(cfg)
@@ -2397,7 +2454,8 @@ def main():
     train_fp32 = phase_train_fp32(model)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
-                      f32_results, bwd_f32_results, f32_launches, bwd_sd15_results, train_fp32))
+                      f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
+                      bwd_sd15_results, train_fp32))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

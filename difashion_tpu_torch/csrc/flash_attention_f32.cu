@@ -12,20 +12,16 @@
 //   forward: O = softmax(scale * Q K^T) V and the natural-log LSE, [B*H, Sq];
 //   dQ:      dQ = scale * [P * (dO V^T - D)] K, P = exp2(scale log2e Q K^T - LSE log2e);
 //   dK/dV:   dV = P^T dO, dK = scale * [P * (dO V^T - D)]^T Q.
-// The precise exp2f throughout; columns >= Skv masked in place (-inf in the
-// forward, P = 0 in the backward), query rows past Sq given P = 0; rows past
-// Sq or Skv zero-filled on load and not stored. No rounding to 16 bits and no
-// atomics: each output element is summed by one thread in a fixed order (the
-// dK/dV split path's partial sums in split order), so repeats are bit-identical.
+// The precise exp2f throughout; the forward's online softmax in the base-2
+// domain (scale * log2e folded into the scores), its LSE m ln2 + log(l);
+// columns >= Skv masked in place (-inf in the forward, P = 0 in the
+// backward), query rows past Sq given P = 0; rows past Sq or Skv zero-filled
+// on load and not stored. No rounding to 16 bits and no atomics: each output
+// element is summed by one thread in a fixed order (the dK/dV split path's
+// partial sums in split order), so repeats are bit-identical.
 //
-// The forward is SIMT FFMA (67 TFLOP/s outside the tensor cores): a block of
-// 256 threads owns 64 rows; each KV tile is copied into shared memory with
-// rows padded by one float, so that a thread's 4 x 4 share of the 64 x 64
-// score tile reads conflict-free; the scores go through shared memory, where
-// 4 threads a row run the online softmax in the base-2 domain.
-//
-// The backward runs on the tensor cores in 3xTF32, at fp32 accuracy: every
-// fp32 operand x of a product is split into hi = x rounded to TF32 (as
+// All three run on the tensor cores in 3xTF32, at fp32 accuracy: every fp32
+// operand x of a product is split into hi = x rounded to TF32 (as
 // cvt.rna.tf32.f32: to nearest, ties away) and lo = x - hi rounded the same
 // way, and each product adds lo*hi' + hi*lo' + hi*hi' (the small terms
 // first) into fp32 accumulators; lo*lo' (about 2^-22 of a product) is
@@ -36,31 +32,36 @@
 // permits one TF32 pass with 10-bit operands) does not gate it. What bounds
 // them on the H100: 3 x the products' operations at the dense TF32 rate
 // (495 TFLOP/s). Two designs (scripts/tf32_chain.py compares their product
-// chains on the card):
-//   - wgmma (dq_wg_kernel, dkv_wg_kernel), at head dims 33..64 with 16-byte
-//     rows (sd2_base's 64, sd15's 40): wgmma reads tf32 only K-major from
-//     shared memory, so the owned side (Q and dO, or K and V) is split once
-//     into hi / lo tiles, and every streamed tile is split by the block's
-//     threads into hi / lo tiles and, for the product that takes it as B
-//     (dS K, P^T dO, dS^T Q), transposed hi / lo tiles; the score tiles'
-//     accumulators become the A fragments of the next product in registers.
-//     Two warpgroups share each staged tile, which 195-224 KB of shared
-//     memory allows once (no double buffer: the next tile's rows wait in
-//     registers during this tile's products).
-//   - mma.sync (dq_tc_kernel, dkv_tc_kernel), at every other head dim: a
-//     block of 4 warps owns 64 rows (16 a warp), keeps its two owned tiles in
-//     shared memory, streams the other side's two through a 2-stage cp.async
-//     ring (16-byte copies where d, the strides and the bases allow it,
-//     4-byte ones otherwise: any d), and splits fragments in registers.
+// chains on the card), chosen on the C side per call:
+//   - wgmma (fwd_wg_kernel, dq_wg_kernel, dkv_wg_kernel), at head dims
+//     33..64 with 16-byte rows (sd2_base's 64, sd15's 40): wgmma reads tf32
+//     only K-major from shared memory, so the owned side (Q, Q and dO, or K
+//     and V) is split once into hi / lo tiles, and every streamed tile is
+//     split by the block's threads into hi / lo tiles and, for the product
+//     that takes it as B (P V, dS K, P^T dO, dS^T Q), transposed hi / lo
+//     tiles; the score tiles' accumulators become the A fragments of the
+//     next product in registers. Two warpgroups share each staged tile. The
+//     backward's 195-224 KB of tiles leave room for one stage (the next
+//     tile's rows wait in registers during this tile's products); the
+//     forward's 64 KB a stage leave room for two, so the next tile is split
+//     into the other stage beside this tile's score product.
+//   - mma.sync (fwd_tc_kernel, dq_tc_kernel, dkv_tc_kernel), at every other
+//     head dim: a block of 4 warps owns 64 rows (16 a warp), keeps its owned
+//     tiles in shared memory, streams the other side's two through a 2-stage
+//     cp.async ring (16-byte copies where d, the strides and the bases allow
+//     it, 4-byte ones otherwise: any d), and splits fragments in registers.
 //     Tiles are unpadded, 32-float groups of a row XOR-swizzled by the row
 //     (`swz`), so that both fragment shapes read conflict-free: 8-byte pairs
 //     along a row (the k of Q K^T and dO V^T, permuted so that k slots t and
 //     t + 4 are columns 2t and 2t + 1), and single floats down a column (the
-//     k of dS K, P^T dO, dS^T Q, whose A fragments are the score
+//     k of P V, dS K, P^T dO, dS^T Q, whose A fragments are the score
 //     accumulators themselves, with the same permutation: no shuffles).
 //   - dK/dV with few KV tiles (the 77-token cross-attention at 4096 tokens)
 //     splits the query range into parts, writes each part's fp32 partial sums
 //     to a workspace, and a second kernel adds them in split order.
+// The forward keeps its online softmax on the score accumulators in
+// registers: a row's 64 scores of a tile lie with the 4 threads of a quad,
+// which take its max and sum by two shuffles each.
 //
 // Interface: plain C (loaded with ctypes), the same arguments as the 16-bit
 // kernels (dtype 2 = fp32). Tensors are addressed by element strides for batch,
@@ -75,159 +76,12 @@
 namespace {
 
 constexpr int kRows = 64;       // rows of every tile
-constexpr int kThreads = 256;   // 16 x 16: thread (ty, tx) owns rows ty + 16i, columns tx + 16j
-constexpr int kLDS = kRows + 1; // padded row of a 64 x 64 score tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// `valid` rows of d columns (row r at src + r * stride) into a [64][DP + 1]
-// tile; the other rows and columns zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t stride,
-                                          int valid, int d) {
-  for (int i = threadIdx.x; i < kRows * DP; i += kThreads) {
-    const int r = i / DP, c = i % DP;
-    dst[r * (DP + 1) + c] = (r < valid && c < d) ? src[int64_t(r) * stride + c] : 0.f;
-  }
-}
+// ---- 3xTF32 by mma.sync -------------------------------------------------------------
 
-// acc[i][j] = sum_c A[ty + 16i][c] * B[tx + 16j][c]: this thread's share of the
-// product of two [64][DP + 1] tiles, the second read as transposed.
-template <int DP>
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A, const float* B,
-                                         int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < DP; ++c) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (DP + 1) + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (DP + 1) + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// out[i][j] += sum_k M[ty + 16i][k] * V[k][tx + 16j]: a [64][kLDS] score tile
-// times a [64][DP + 1] tile.
-template <int DP>
-__device__ __forceinline__ void tile_mv(float (&out)[4][DP / 16], const float* M, const float* V,
-                                        int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < kRows; ++k) {
-    float mm[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mm[i] = M[(ty + 16 * i) * kLDS + k];
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      const float vv = V[k * (DP + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) out[i][j] = fmaf(mm[i], vv, out[i][j]);
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-               int H, int Sq, int Skv, int d, int64_t q_sb, int64_t q_sh, int64_t q_ss,
-               int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
-               int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2) {
-  constexpr int LD = DP + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kRows * LD;
-  float* sV = sK + kRows * LD;
-  float* sP = sV + kRows * LD;       // [64][kLDS]: scores, then probabilities
-  float* sAlpha = sP + kRows * kLDS; // [64]
-  float* sL = sAlpha + kRows;        // [64]
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int sr = tid / 4, sp = tid % 4;   // the softmax's row and quarter of it
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
-
-  load_tile<DP>(sQ, q + b * q_sb + h * q_sh + int64_t(q0) * q_ss, q_ss, Sq - q0, d);
-  float acc[4][DP / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) acc[i][j] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;   // row sr, base 2, kept by its 4 threads
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += kRows) {
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<DP>(sK, kb + int64_t(kv0) * k_ss, k_ss, Skv - kv0, d);
-    load_tile<DP>(sV, vb + int64_t(kv0) * v_ss, v_ss, Skv - kv0, d);
-    __syncthreads();
-    float s[4][4];
-    tile_abt<DP>(s, sQ, sK, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(ty + 16 * i) * kLDS + tx + 16 * j] =
-            kv0 + tx + 16 * j < Skv ? s[i][j] * scale_log2 : -INFINITY;
-    __syncthreads();
-    float* row = sP + sr * kLDS + sp * 16;
-    float mx = m_run;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
-    const float alpha = exp2f(m_run - mx);   // 0 on the first tile
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const float p = exp2f(row[c] - mx);
-      row[c] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffff, sum, 1);
-    sum += __shfl_xor_sync(0xffffffff, sum, 2);
-    l_run = l_run * alpha + sum;
-    m_run = mx;
-    if (sp == 0) sAlpha[sr] = alpha;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = sAlpha[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) acc[i][j] *= a;
-    }
-    tile_mv<DP>(acc, sP, sV, ty, tx);
-  }
-  if (sp == 0) {
-    sL[sr] = l_run;
-    if (q0 + sr < Sq) lse[int64_t(bh) * Sq + q0 + sr] = m_run * kLn2 + logf(l_run);
-  }
-  __syncthreads();
-  float* ob = o + b * o_sb + h * o_sh + int64_t(q0) * o_ss;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= Sq) continue;
-    const float inv = 1.f / sL[r];
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) ob[int64_t(r) * o_ss + c] = acc[i][j] * inv;
-    }
-  }
-}
-
-// ---- the backward: tensor cores, 3xTF32 --------------------------------------------
-
-constexpr int kBwdThreads = 128;   // 4 warps of 16 owned rows each
+constexpr int kTcThreads = 128;    // 4 warps of 16 owned rows each
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -253,24 +107,24 @@ __device__ __forceinline__ void cp_async_wait() {
 // 0, 8, 16, 24 once, which makes both fragment reads conflict-free.
 __device__ __forceinline__ int swz(int r) { return (((r & 3) ^ ((r >> 2) & 1))) << 3; }
 
-// `valid` rows of d columns (row r at src + r * stride) into a [64][DP] tile,
-// swizzled; the other rows and columns zero. vec: d, the strides and src allow
-// 16-byte copies.
-template <int DP>
+// `valid` rows of d columns (row r at src + r * stride) into a [ROWS][DP]
+// tile, swizzled, by a block of THREADS threads; the other rows and columns
+// zero. vec: d, the strides and src allow 16-byte copies.
+template <int DP, int ROWS = kRows, int THREADS = kTcThreads>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* src, int64_t stride,
                                                 int valid, int d, bool vec) {
   const uint32_t base = smem_u32(dst);
   if (vec) {
     constexpr int kChunks = DP / 4;
 #pragma unroll
-    for (int i = threadIdx.x; i < kRows * kChunks; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
       const int r = i / kChunks, c = (i % kChunks) * 4;
       const bool ok = r < valid && c < d;
       cp_async16(base + 4 * (r * DP + (c ^ swz(r))), ok ? src + int64_t(r) * stride + c : src, ok);
     }
   } else {
 #pragma unroll 4
-    for (int i = threadIdx.x; i < kRows * DP; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
       const int r = i / DP, c = i % DP;
       const bool ok = r < valid && c < d;
       cp_async4(base + 4 * (r * DP + (c ^ swz(r))), ok ? src + int64_t(r) * stride + c : src, ok);
@@ -441,8 +295,149 @@ __device__ __forceinline__ void store_acc(float* dst, int64_t stride, const floa
     }
 }
 
+// ---- the forward's softmax and epilogue, on either accumulator -------------------------
+
+// A thread's share of a score or output tile: slot c of 8-column group n is
+// row g + 8 (c >> 1), column 8n + 2t + (c & 1), in mma.sync's m16n8
+// accumulators ([n][c]) and in wgmma's ([4n + c]) alike.
+template <int N>
+__device__ __forceinline__ float& at(float (&a)[N][4], int n, int c) { return a[n][c]; }
+__device__ __forceinline__ float& at(float (&a)[32], int n, int c) { return a[4 * n + c]; }
+
+// The online softmax of one 64-key tile in the base-2 domain, on this
+// thread's scores s (keys kv0 + 8n + 2t + (c & 1)): scaled by scale_log2,
+// -inf at keys >= Skv; the rows' running max m raised to the tile's, s
+// overwritten by P = exp2(x - m), this thread's shares of the rows' running
+// sums l updated (a quad's four shares add up to the row's sum:
+// `finish_rows`), and alpha = exp2(m before - m after), the factor by which
+// the rows' earlier output sums shrink (0 on the first tile).
+template <typename S>
+__device__ __forceinline__ void online_softmax(S& s, float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int kv0, int t, int Skv,
+                                               float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float x = kv0 + 8 * n + 2 * t + (c & 1) < Skv ? at(s, n, c) * scale_log2 : -INFINITY;
+      at(s, n, c) = x;
+      mx[c >> 1] = fmaxf(mx[c >> 1], x);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffff, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffff, mx[i], 2));
+    alpha[i] = exp2f(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p = exp2f(at(s, n, c) - m[c >> 1]);
+      at(s, n, c) = p;
+      sum[c >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+}
+
+// The forward's epilogue for this thread's rows row0 and row0 + 8 (ob and
+// lse at row 0 of its (batch, head)): the quad's shares of each row's sum
+// added, O = acc / l at columns < d (NG 8-column groups), LSE = m ln2 +
+// log(l); rows >= Sq not stored.
+template <int NG, typename A>
+__device__ __forceinline__ void finish_rows(A& acc, const float (&m)[2], float (&l)[2], float* ob,
+                                            int64_t o_ss, float* lse, int row0, int t, int Sq,
+                                            int d) {
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffff, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffff, l[i], 2);
+    inv[i] = 1.f / l[i];
+    if (t == 0 && row0 + 8 * i < Sq) lse[row0 + 8 * i] = m[i] * kLn2 + logf(l[i]);
+  }
+#pragma unroll
+  for (int n = 0; n < NG; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = row0 + 8 * (c >> 1), col = 8 * n + 2 * t + (c & 1);
+      if (r < Sq && col < d) ob[int64_t(r) * o_ss + col] = at(acc, n, c) * inv[c >> 1];
+    }
+}
+
+// The forward at any head dim: O = softmax(scale Q K^T) V and the LSE for
+// 16 W Q rows a block of W warps (16 rows a warp). Q stays in shared memory;
+// K and V stream through a 2-stage cp.async ring; per 64-key tile S = Q K^T
+// (`scores`), the online softmax on its accumulators, O scaled by alpha and
+// the tile's P V added from fresh accumulators (`accumulate`, P as the A
+// operand). `fwd_tc_warps` picks W.
+template <int DP, int W>
+__global__ void __launch_bounds__(32 * W)
+fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int H, int Sq, int Skv, int d, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+              int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
+              int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2,
+              bool vec) {
+  constexpr int T = kRows * DP, QR = 16 * W, NT = 32 * W;
+  extern __shared__ __align__(16) float smem_tc[];
+  float* sQ = smem_tc;
+  float* sKV = sQ + QR * DP;   // stage s: K at sKV + 2sT, V at sKV + (2s + 1)T
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * QR;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const Lane<DP> L;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+
+  load_tile_async<DP, QR, NT>(sQ, q + b * q_sb + h * q_sh + int64_t(q0) * q_ss, q_ss, Sq - q0,
+                              d, vec);
+  load_tile_async<DP, kRows, NT>(sKV, kb, k_ss, Skv, d, vec);
+  load_tile_async<DP, kRows, NT>(sKV + T, vb, v_ss, Skv, d, vec);
+  cp_async_commit();
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // rows r0 + g, r0 + g + 8
+
+  const int n_kv = (Skv + kRows - 1) / kRows;
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) {
+      const int kv1 = (it + 1) * kRows;
+      float* nxt = sKV + ((it + 1) & 1) * 2 * T;
+      load_tile_async<DP, kRows, NT>(nxt, kb + int64_t(kv1) * k_ss, k_ss, Skv - kv1, d, vec);
+      load_tile_async<DP, kRows, NT>(nxt + T, vb + int64_t(kv1) * v_ss, v_ss, Skv - kv1, d,
+                                     vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = sKV + (it & 1) * 2 * T;
+    float s[8][4], alpha[2];
+    scores<DP>(s, L, sQ, sK, r0);   // S = Q K^T
+    online_softmax(s, m, l, alpha, it * kRows, L.t, Skv, scale_log2);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
+    accumulate<DP>(acc, s, L, sK + T);   // O += P V
+    __syncthreads();
+  }
+  finish_rows<DP / 8>(acc, m, l, o + b * o_sb + h * o_sh, o_ss, lse + int64_t(bh) * Sq,
+                      q0 + r0 + L.g, L.t, Sq, d);
+}
+
 template <int DP>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kTcThreads)
 dq_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -547,6 +542,9 @@ constexpr int kDqWgSmem = 14 * kTf + 1024;
 // lo, dO hi, lo, Q^T hi, lo, dO^T hi, lo (half tiles) and its LSE and D
 constexpr int kQT = 32;
 constexpr int kDkvWgSmem = 8 * kTf + 8 * (kTf / 2) + 2 * kQT * 4 + 1024;
+// the forward: per warpgroup Q hi, lo; shared, in each of two stages, K hi,
+// lo and V^T hi, lo (197 KB)
+constexpr int kFwdWgSmem = 12 * kTf + 1024;
 
 // Byte offset of (r, c) in a tile of ROWS rows and 64 columns, K-major and
 // 128-byte swizzled (the 16-byte unit XOR the row % 8, as wgmma reads it):
@@ -571,8 +569,9 @@ __device__ __forceinline__ int kt_col(int r) {
   return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
 }
 
-// Columns c..c+3 of row r, split, into ROWS-row hi and lo tiles (and, with
-// hi_t / lo_t, into 64-row transposed ones: rows c..c+3, column kt_col(r)).
+// Columns c..c+3 of row r, split, into ROWS-row hi and lo tiles (none where
+// hi is null) and, with hi_t / lo_t, into 64-row transposed ones: rows
+// c..c+3, column kt_col(r).
 template <int ROWS>
 __device__ __forceinline__ void put4(uint8_t* hi, uint8_t* lo, int r, int c, float4 x,
                                      uint8_t* hi_t = nullptr, uint8_t* lo_t = nullptr) {
@@ -581,8 +580,10 @@ __device__ __forceinline__ void put4(uint8_t* hi, uint8_t* lo, int r, int c, flo
   split(x.y, h.y, l.y);
   split(x.z, h.z, l.z);
   split(x.w, h.w, l.w);
-  *reinterpret_cast<uint4*>(hi + tf_off<ROWS>(r, c)) = h;
-  *reinterpret_cast<uint4*>(lo + tf_off<ROWS>(r, c)) = l;
+  if (hi != nullptr) {
+    *reinterpret_cast<uint4*>(hi + tf_off<ROWS>(r, c)) = h;
+    *reinterpret_cast<uint4*>(lo + tf_off<ROWS>(r, c)) = l;
+  }
   if (hi_t != nullptr) {
     const int col = kt_col(r);
     const uint32_t hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
@@ -623,6 +624,135 @@ __device__ __forceinline__ void stage_owned(uint8_t* own, const float* a, int64_
     put4<64>(own, own + kTf, r, c0 + 4 * j, x[j]);
     put4<64>(own + 2 * kTf, own + 3 * kTf, r, c0 + 4 * j, y[j]);
   }
+}
+
+// Rows r0..r0+63 of n rows of q split into the K-major hi / lo tiles at own,
+// by the 128 threads of a warpgroup (wt its thread): row wt % 64, 32 columns
+// each.
+__device__ __forceinline__ void stage_q(uint8_t* own, const float* a, int64_t a_ss, int r0,
+                                        int n, int d, int wt) {
+  const int r = wt & 63, c0 = (wt >> 6) * 32;
+  float4 x[8];
+  fetch<8>(x, a + int64_t(r0) * a_ss, a_ss, r, n - r0, c0, d);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) put4<64>(own, own + kTf, r, c0 + 4 * j, x[j]);
+}
+
+// A thread's share of a 64-key tile (key kr, columns kc..kc+15 of K and of
+// V), split into a forward stage: K hi, K lo, V^T hi, V^T lo (V^T, the B of
+// P V, only transposed).
+__device__ __forceinline__ void stage_kv(uint8_t* st, int kr, int kc, const float4 (&pk)[4],
+                                         const float4 (&pv)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    put4<64>(st, st + kTf, kr, kc + 4 * j, pk[j]);
+    put4<64>(nullptr, nullptr, kr, kc + 4 * j, pv[j], st + 2 * kTf, st + 3 * kTf);
+  }
+}
+
+// The forward for 33 <= d <= 64 with 16-byte rows (d, strides and bases
+// multiples of 4 floats): the same function as fwd_tc_kernel<64>, its
+// products by wgmma. A block of 2 warpgroups owns 128 Q rows (64 each), Q
+// split once into K-major hi / lo tiles. Each 64-key tile is split by the
+// block's 256 threads (one key, 16 columns of K and of V each) into K hi /
+// lo and transposed V^T hi / lo tiles (P V takes V as its B, which wgmma
+// reads in tf32 only K-major), in one of two stages: the next tile is split
+// beside this tile's S = Q K^T, and the rows of the one after are fetched
+// into registers during its softmax and P V. Per tile: S from shared memory
+// into fresh accumulators, the online softmax on them, P split into A
+// fragments in registers, P V into fresh accumulators, O = alpha O + P V.
+__global__ void __launch_bounds__(kWgThreads, 1)
+fwd_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int H, int Sq, int Skv, int d, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+              int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
+              int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2) {
+  extern __shared__ unsigned char smem_wg_raw[];
+  // the tiles start on a 1024-byte boundary, reached by an offset into the
+  // shared array, so that the staging's stores compile to shared-memory
+  // stores (STS; a pointer through uintptr_t makes them generic stores)
+  uint8_t* smem_wg = smem_wg_raw + (-hopper::smem_u32(smem_wg_raw) & 1023u);
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  uint8_t* own = smem_wg + wg * 2 * kTf;   // Q hi, Q lo
+  uint8_t* kvs = smem_wg + 4 * kTf;        // stage s at kvs + 4s kTf: K hi, lo, V^T hi, lo
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * 128 + wg * 64;   // this warpgroup's first row
+  stage_q(own, q + b * q_sb + h * q_sh, q_ss, q0, Sq, d, wt);
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + ((wt >> 5) << 4) + g;   // this thread's rows: row0, row0 + 8
+  // the KV tiles: thread tid takes key tid % 64, columns 16 (tid / 64) .. + 15
+  const int kr = tid & 63, kc = (tid >> 6) * 16;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const int n_kv = (Skv + kRows - 1) / kRows;
+  float4 pk[4], pv[4];
+  fetch<4>(pk, kb, k_ss, kr, Skv, kc, d);
+  fetch<4>(pv, vb, v_ss, kr, Skv, kc, d);
+  stage_kv(kvs, kr, kc, pk, pv);
+  if (n_kv > 1) {
+    fetch<4>(pk, kb + int64_t(kRows) * k_ss, k_ss, kr, Skv - kRows, kc, d);
+    fetch<4>(pv, vb + int64_t(kRows) * v_ss, v_ss, kr, Skv - kRows, kc, d);
+  }
+  const uint32_t qh = hopper::smem_u32(own), ql = qh + kTf, kv_a = hopper::smem_u32(kvs);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_kv; ++it) {
+    hopper::fence_proxy_async_shared();
+    __syncthreads();   // tile it staged, and every warpgroup done with tile it - 1
+    const uint32_t kh = kv_a + (it & 1) * 4 * kTf, kl = kh + kTf;
+    const uint32_t vh = kh + 2 * kTf, vl = kh + 3 * kTf;
+    float s[32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {   // S = Q K^T: lo hi, hi lo, hi hi
+      hopper::wgmma_tf32_ss64(s, tf_desc<64>(ql, kk), tf_desc<64>(kh, kk), kk != 0);
+      hopper::wgmma_tf32_ss64(s, tf_desc<64>(qh, kk), tf_desc<64>(kl, kk), 1);
+      hopper::wgmma_tf32_ss64(s, tf_desc<64>(qh, kk), tf_desc<64>(kh, kk), 1);
+    }
+    hopper::wgmma_commit();
+    if (it + 1 < n_kv) {   // the next tile, split beside this tile's S
+      stage_kv(kvs + ((it + 1) & 1) * 4 * kTf, kr, kc, pk, pv);
+      if (it + 2 < n_kv) {
+        const int kv2 = (it + 2) * kRows;
+        fetch<4>(pk, kb + int64_t(kv2) * k_ss, k_ss, kr, Skv - kv2, kc, d);
+        fetch<4>(pv, vb + int64_t(kv2) * v_ss, v_ss, kr, Skv - kv2, kc, d);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(s);
+    float alpha[2];
+    online_softmax(s, m, l, alpha, it * kRows, t, Skv, scale_log2);
+    uint32_t ph[8][4], pl[8][4];   // P, split into the A fragments of k-steps j (keys 8j..8j+7)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      split(s[4 * j], ph[j][0], pl[j][0]);
+      split(s[4 * j + 2], ph[j][1], pl[j][1]);
+      split(s[4 * j + 1], ph[j][2], pl[j][2]);
+      split(s[4 * j + 3], ph[j][3], pl[j][3]);
+    }
+    float part[32];   // this tile's P V, summed apart (see `accumulate`)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {   // P V: lo hi, hi lo, hi hi
+      hopper::wgmma_tf32_rs64(part, pl[j], tf_desc<64>(vh, j), j != 0);
+      hopper::wgmma_tf32_rs64(part, ph[j], tf_desc<64>(vl, j), 1);
+      hopper::wgmma_tf32_rs64(part, ph[j], tf_desc<64>(vh, j), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(part);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      hopper::fence_operands(ph[j]);
+      hopper::fence_operands(pl[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], part[i]);
+  }
+  finish_rows<8>(acc, m, l, o + b * o_sb + h * o_sh, o_ss, lse + int64_t(bh) * Sq, row0, t, Sq,
+                 d);
 }
 
 // dQ for 33 <= d <= 64 with 16-byte rows (d, strides and bases multiples of
@@ -956,7 +1086,7 @@ dkv_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ws (splits > 1): the parts' fp32 partial dK, then dV, each [splits][B*H][Skv][D].
 template <int DP>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kTcThreads)
 dkv_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1088,25 +1218,9 @@ cudaError_t allow_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-constexpr int tile_bytes(int dp) { return kRows * (dp + 1) * 4; }
-constexpr int scores_bytes() { return kRows * kLDS * 4; }
-
-template <int DP>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
-        int Skv, int D, const int64_t* st, float scale, cudaStream_t stream) {
-  constexpr int smem = 3 * tile_bytes(DP) + scores_bytes() + 2 * kRows * 4;
-  static const cudaError_t attr = allow_smem(fwd_f32_kernel<DP>, smem);
-  if (attr != cudaSuccess) return int(attr);
-  const dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  fwd_f32_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, H, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale * kLog2e);
-  return int(cudaGetLastError());
-}
-
-// 16-byte copies: d, every stride of the `n` strided tensors read by cp.async
-// and their bases allow them.
+// 16-byte rows: d, every stride of the `n` strided tensors and their bases
+// are multiples of 4 floats (cp.async's 16-byte copies, the wgmma kernels'
+// float4 loads).
 bool vec_ok(const void* const* ptrs, int n, const int64_t* st, int D) {
   if (D % 4 != 0) return false;
   for (int i = 0; i < n; ++i) {
@@ -1115,6 +1229,40 @@ bool vec_ok(const void* const* ptrs, int n, const int64_t* st, int D) {
       if (st[3 * i + j] % 4 != 0) return false;
   }
   return true;
+}
+
+// The mma.sync forward's warps a block: 4 (64 Q rows) up to DP = 64, where
+// 2-5 blocks share an SM; 8 (128 rows) at DP = 128, whose 64-row tiles would
+// leave one 4-warp block an SM (160 KB of shared memory).
+constexpr int fwd_tc_warps(int dp) { return dp == 128 ? 8 : 4; }
+
+template <int DP>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Sq,
+        int Skv, int D, const int64_t* st, float scale, cudaStream_t stream) {
+  const void* rw[4] = {q, k, v, o};
+  const bool vec = vec_ok(rw, 4, st, D);
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  const bool wg = DP == 64 && vec;
+  if (wg) {
+    static const cudaError_t attr = allow_smem(fwd_wg_kernel, kFwdWgSmem);
+    if (attr != cudaSuccess) return int(attr);
+    const dim3 grid((Sq + 127) / 128, B * H);
+    fwd_wg_kernel<<<grid, kWgThreads, kFwdWgSmem, stream>>>(
+        qf, kf, vf, of, lse, H, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+        st[7], st[8], st[9], st[10], st[11], scale * kLog2e);
+  } else {
+    constexpr int W = fwd_tc_warps(DP), rows = 16 * W;
+    constexpr int smem = (rows + 4 * kRows) * DP * 4;   // Q; K and V in 2 stages
+    static const cudaError_t attr = allow_smem(fwd_tc_kernel<DP, W>, smem);
+    if (attr != cudaSuccess) return int(attr);
+    const dim3 grid((Sq + rows - 1) / rows, B * H);
+    fwd_tc_kernel<DP, W><<<grid, 32 * W, smem, stream>>>(
+        qf, kf, vf, of, lse, H, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+        st[7], st[8], st[9], st[10], st[11], scale * kLog2e, vec);
+  }
+  return int(cudaGetLastError());
 }
 
 int dq_wg(const void* q, const void* k, const void* v, const void* dout, const float* lse,
@@ -1143,7 +1291,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout, const floa
   static const cudaError_t attr = allow_smem(dq_tc_kernel<DP>, smem);
   if (attr != cudaSuccess) return int(attr);
   const dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  dq_tc_kernel<DP><<<grid, kBwdThreads, smem, stream>>>(
+  dq_tc_kernel<DP><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dqp), H, Sq, Skv, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
@@ -1182,7 +1330,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout, const flo
     static const cudaError_t attr = allow_smem(dkv_tc_kernel<DP>, smem);
     if (attr != cudaSuccess) return int(attr);
     const dim3 grid((Skv + kRows - 1) / kRows, splits, B * H);
-    dkv_tc_kernel<DP><<<grid, kBwdThreads, smem, stream>>>(
+    dkv_tc_kernel<DP><<<grid, kTcThreads, smem, stream>>>(
         qf, kf, vf, df, lse, delta, dkf, dvf, ws, H, Sq, Skv, D, per, st[0], st[1], st[2], st[3],
         st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15],
         st[16], st[17], scale, scale * kLog2e, vec);

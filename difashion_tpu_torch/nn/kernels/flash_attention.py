@@ -18,11 +18,11 @@ Ports of `difashion_tpu/nn/pallas/flash_attention.py`:
   specialisation, persistent grids) and read the head dim in place.
   * all three for fp32 inputs -> `csrc/flash_attention_f32.cu`, counted as
     `flash_attention_fwd_f32`, `flash_attention_dq_f32` and
-    `flash_attention_dkv_f32`. The forward is SIMT FFMA. dQ and dK/dV run on
-    the tensor cores in 3xTF32 (wgmma tf32 at head dims 33..64, mma.sync tf32
-    at the others): each fp32 operand is split into a TF32 high part and a
-    TF32 remainder (`tf32_split`) and three products are summed, which keeps
-    fp32 accuracy, so unlike one TF32 pass it is not gated by
+    `flash_attention_dkv_f32`. All three run on the tensor cores in 3xTF32
+    (wgmma tf32 at head dims 33..64 with 16-byte rows, mma.sync tf32 at the
+    others; the C side picks): each fp32 operand is split into a TF32 high
+    part and a TF32 remainder (`tf32_split`) and three products are summed,
+    which keeps fp32 accuracy, so unlike one TF32 pass it is not gated by
     `torch.backends.cuda.matmul.allow_tf32`; dK/dV splits the query range as
     the 16-bit kernel does (`dkv_splits`). No 16-bit rounding anywhere.
 D = rowsum(dO * O) is plain torch in fp32 (`attention_delta`), as the JAX
@@ -43,9 +43,9 @@ kernel does not take. For CPU tensors it computes its plain version
 (`flash_attention_ref`, `flash_attention_dq_ref`, `flash_attention_dkv_ref`),
 which the CPU tests hold against the JAX kernels. The plain backward rounds P
 and dS to the input dtype before their products, as the kernels do (a no-op
-in fp32). `flash_attention_bwd_3xtf32_ref` is the fp32 backward with every
-product's operands split where the fp32 kernels split them; only the tests
-use it.
+in fp32). `flash_attention_3xtf32_ref` and `flash_attention_bwd_3xtf32_ref`
+are the fp32 forward and backward with every product's operands split where
+the fp32 kernels split them; only the tests use them.
 """
 from __future__ import annotations
 
@@ -195,7 +195,7 @@ def _tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) of fp32 x as the fp32 backward kernels split an operand:
+    """(hi, lo) of fp32 x as the fp32 kernels split an operand:
     hi = x rounded to TF32, lo = (x - hi) rounded to TF32, so that
     hi + lo = x to about 2^-22 of x (both exact in fp32). hi of an inf or a
     NaN is itself; lo is then NaN (inf - inf), as in the kernels."""
@@ -206,10 +206,37 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in fp32 from 3xTF32 operands, as the fp32 backward kernels form
-    each product: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b); lo lo dropped."""
+    """a @ b in fp32 from 3xTF32 operands, as the fp32 kernels form each
+    product: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b); lo lo dropped."""
     (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
     return torch.matmul(al, bh).add_(torch.matmul(ah, bl)).add_(torch.matmul(ah, bh))
+
+
+def _check_f32(name: str, tensors) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: fp32 inputs, got {t.dtype}")
+
+
+def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 forward as the fp32 forward kernels round it: S = Q K^T and
+    P V each a 3xTF32 product (`_mm_3xtf32`) of fp32 operands, the softmax
+    in fp32 between them, P unnormalised (exp(S - rowmax)) and O divided by
+    the row sums after the product. Returns (o, lse) as `flash_attention_ref`
+    does. For tests: the kernels' sums run in another order, and their
+    softmax is online, in the base-2 domain, with a running max."""
+    _check_f32("flash_attention_3xtf32_ref", (q, k, v))
+    b, h, sq, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = _mm_3xtf32(q, k.transpose(-1, -2)).mul_(scale)
+    mx = s.amax(-1, keepdim=True)
+    p = s.sub_(mx).exp_()
+    l = p.sum(-1, keepdim=True)
+    o = _mm_3xtf32(p, v).div_(l)
+    return o, (mx + l.log()).reshape(b * h, sq)
 
 
 def flash_attention_dq_ref(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
@@ -239,9 +266,7 @@ def flash_attention_bwd_3xtf32_ref(q, k, v, o, lse, do, scale: Optional[float] =
     dQ, dK and dV each a 3xTF32 product (`_mm_3xtf32`) of fp32 operands, P
     and dS in fp32 between them. For tests: the kernels' sums run in another
     order, and their P is exp2 of base-2 logits."""
-    for t in (q, k, v, o, do):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention_bwd_3xtf32_ref: fp32 inputs, got {t.dtype}")
+    _check_f32("flash_attention_bwd_3xtf32_ref", (q, k, v, o, do))
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     delta = attention_delta(o, do)

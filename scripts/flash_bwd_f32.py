@@ -52,18 +52,23 @@ EDGE_SHAPES = [("sq63_skv65", 1, 2, 63, 65, 64), ("sq65_skv63", 1, 2, 65, 63, 64
 SPLIT_COUNTS = (1, 2, 3, 4, 6)
 
 
-def sass_report(path):
+BWD_KERNELS = ("dq_tc_kernel", "dkv_tc_kernel", "dq_wg_kernel", "dkv_wg_kernel")
+
+
+def sass_report(path, names=BWD_KERNELS):
     """{function: highest register, local loads / stores, opcode counts} of
-    the backward kernels in the library's SASS (cuobjdump from the toolkit)."""
+    the kernels `names` (the backward's by default) in the library's SASS
+    (cuobjdump from the toolkit); a template's instantiations apart."""
     from difashion_tpu_torch.nn import kernels
 
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True)
     out, cur = {}, None
+    pattern = re.compile("(" + "|".join(names) + r")(?:ILi(\d+)E)?")
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
-            m = re.search(r"(dq_tc_kernel|dkv_tc_kernel)ILi(\d+)E|(dq_wg_kernel|dkv_wg_kernel)", ln)
-            cur = (f"{m.group(1)}<{m.group(2)}>" if m.group(1) else m.group(3)) if m else None
+            m = pattern.search(ln)
+            cur = (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else None
             if cur:
                 out[cur] = {"max_reg": 0, "ops": {}}
         elif cur:

@@ -381,8 +381,9 @@ def test_f32_kernels_match_plain(dev, b, h, sq, skv, d):
         assert t.transpose(1, 2).is_contiguous()
 
 
-# Sq and Skv one below and one above the fp32 backward's 64-row tiles, and
-# head dims from 4 to 128 (d = 17: 4-byte copies)
+# Sq and Skv one below and one above the fp32 kernels' 64-row tiles (and the
+# wgmma forward's 128-row blocks), and head dims from 4 to 128 (d = 17:
+# 4-byte copies)
 F32_EDGE_SHAPES = [
     (1, 2, 63, 65, 64),
     (1, 2, 65, 63, 64),
@@ -419,6 +420,71 @@ def test_f32_backward_at_tile_edges(dev, b, h, sq, skv, d):
         assert torch.equal(g, a)
         torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
         assert _rel(g, t) <= 2e-5
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", F32_EDGE_SHAPES)
+def test_f32_forward_at_tile_edges(dev, b, h, sq, skv, d):
+    """The fp32 forward kernels (3xTF32 on the tensor cores: wgmma over 128
+    Q rows at d = 36 and 64, mma.sync over 64 or 128 at the others) at the edges of
+    their tiles: O and the LSE within 2e-5 per element of the fp32 plain
+    forward, within 2e-5 relative L2 of the plain 3xTF32 forward (which
+    splits where the kernels split), and bit-identical on a second call."""
+    from difashion_tpu_torch.nn.kernels.flash_attention import flash_attention_3xtf32_ref
+
+    q, k, v = (_proj(b, s, h, d, torch.float32, dev, seed)
+               for s, seed in ((sq, 15), (skv, 16), (skv, 17)))
+    kernels.reset_launches()
+    got = flash_attention(q, k, v)
+    again = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd_f32"] == 2
+    plain = flash_attention_ref(q, k, v)
+    split = flash_attention_3xtf32_ref(q, k, v)
+    for g, a, w, t in zip(got, again, plain, split):
+        assert g.shape == w.shape and torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+        assert _rel(g, t) <= 2e-5
+
+
+def _f32_forward_kernels(q, k, v):
+    """The names of the CUDA kernels one fp32 `flash_attention` call runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    return {name for name in ("fwd_wg_kernel", "fwd_tc_kernel")
+            if any(name in evt.key for evt in prof.key_averages())}
+
+
+def test_f32_forward_routes(dev):
+    """The C side's choice of fp32 forward: the wgmma kernel at d = 64 and
+    40 on the projections' aligned views; the mma.sync kernel at d = 64 on a
+    view whose strides are not multiples of 4 floats (rows 66 floats apart),
+    and at d = 80 and 16. Each route within 2e-5 of the plain version."""
+    def cut(s, h, d, width, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(2, s, h, width, generator=g, device=dev)
+        return x[..., :d].transpose(1, 2)
+
+    cases = [((_proj(2, s, 3, 64, torch.float32, dev, i) for i, s in ((1, 200), (2, 77), (3, 77))),
+              "fwd_wg_kernel"),
+             ((_proj(2, s, 8, 40, torch.float32, dev, i) for i, s in ((4, 300), (5, 130), (6, 130))),
+              "fwd_wg_kernel"),
+             ((cut(s, 3, 64, 66, i) for i, s in ((7, 200), (8, 77), (9, 77))), "fwd_tc_kernel"),
+             ((_proj(2, s, 8, 80, torch.float32, dev, i) for i, s in ((10, 200), (11, 77), (12, 77))),
+              "fwd_tc_kernel"),
+             ((_proj(2, s, 3, 16, torch.float32, dev, i) for i, s in ((13, 130), (14, 77), (15, 77))),
+              "fwd_tc_kernel")]
+    for tensors, route in cases:
+        q, k, v = tensors
+        assert _f32_forward_kernels(q, k, v) == {route}, (tuple(q.shape), q.stride())
+        o, lse = flash_attention(q, k, v)
+        ro, rlse = flash_attention_ref(q, k, v)
+        torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
 
 
 def test_f32_dkv_split_path_is_deterministic(dev):

@@ -1,11 +1,12 @@
-"""The numerics of the fp32 flash-attention backward kernels, which run 3xTF32
-on the tensor cores: `tf32_split` (the operand split, round to nearest with
-ties away from zero, as `cvt.rna.tf32.f32`), the plain 3xTF32 backward built
-on it (which rounds where the kernels round) against the fp32 plain backward
-and the JAX package's Pallas backward in interpret mode, the fp32 dK/dV split
-plan, and the kernel source's contract. The CUDA kernels themselves are held
-against both plain backwards on the card (tests/test_torch_port_cuda.py,
-chip_smoke.py, scripts/flash_bwd_f32.py)."""
+"""The numerics of the fp32 flash-attention kernels, forward and backward,
+which run 3xTF32 on the tensor cores: `tf32_split` (the operand split, round
+to nearest with ties away from zero, as `cvt.rna.tf32.f32`), the plain 3xTF32
+forward and backward built on it (which round where the kernels round)
+against the fp32 plain versions and the JAX package's Pallas forward and
+backward in interpret mode, the fp32 dK/dV split plan, and the kernel
+source's contract. The CUDA kernels themselves are held against both plain
+versions on the card (tests/test_torch_port_cuda.py, chip_smoke.py,
+scripts/flash_fwd_f32.py, scripts/flash_bwd_f32.py)."""
 import os
 import re
 import struct
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from difashion_tpu.nn.pallas.flash_attention import _forward as jax_forward
 from difashion_tpu.nn.pallas.flash_attention import flash_attention as jax_flash
 from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.kernels.flash_attention import (
@@ -24,6 +26,7 @@ from difashion_tpu_torch.nn.kernels.flash_attention import (
     SM_COUNT,
     SPLIT_MIN_Q_TILES,
     dkv_splits,
+    flash_attention_3xtf32_ref,
     flash_attention_bwd_3xtf32_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
@@ -127,6 +130,45 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
+def _pallas_lse(q, k, v):
+    """The natural-log LSE [B*H, Sq] of the Pallas forward (`_forward`, the
+    function `flash_attention` reaches) in interpret mode, on inputs padded
+    to its 128-row blocks as `flash_attention` pads them."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    pad = lambda x, s: np.pad(x.reshape(b * h, s, d), [(0, 0), (0, -s % 128), (0, 0)])
+    _, lse = jax_forward(jnp.asarray(pad(q, sq)), jnp.asarray(pad(k, skv)),
+                         jnp.asarray(pad(v, skv)), 1.0 / np.sqrt(d), 128, 128, True, skv)
+    return np.asarray(lse)[:, 0, :sq]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", SHAPES)
+def test_3xtf32_plain_forward_matches_fp32_and_pallas(b, h, sq, skv, d):
+    """The forward as the fp32 kernels round it (S and P V each from TF32
+    hi / lo operands, three products summed) is within F32_TOL of the fp32
+    plain forward and of the Pallas forward in interpret mode, O and the LSE
+    alike, per element and in relative L2."""
+    q, k, v, _ = _inputs(b, h, sq, skv, d)
+    want = (np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)), block_q=128, block_kv=128,
+                                 interpret=True)), _pallas_lse(q, k, v))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = flash_attention_3xtf32_ref(tq, tk, tv)
+    fp32 = flash_attention_ref(tq, tk, tv)
+    for name, g, f, w in zip(("o", "lse"), got, fp32, want):
+        assert g.dtype == torch.float32 and g.shape == f.shape, name
+        torch.testing.assert_close(g, f, rtol=F32_TOL, atol=F32_TOL)
+        torch.testing.assert_close(g, torch.from_numpy(np.array(w)), rtol=F32_TOL, atol=F32_TOL)
+        assert _rel(g, f) <= F32_TOL and _rel(g, w) <= F32_TOL, name
+        # and not the fp32 forward itself: the splits are taken
+        assert not torch.equal(g, f), name
+
+
+def test_3xtf32_plain_forward_takes_fp32_only():
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _inputs(1, 1, 8, 8, 16)[:3])
+    with pytest.raises(TypeError):
+        flash_attention_3xtf32_ref(q, k, v)
+
+
 @pytest.mark.parametrize("b,h,sq,skv,d", SHAPES)
 def test_3xtf32_plain_backward_matches_fp32_and_pallas(b, h, sq, skv, d):
     """The backward as the fp32 kernels round it (every product's operands
@@ -201,11 +243,13 @@ def test_f32_dkv_split_plan_never_makes_an_empty_part():
 
 
 def test_f32_source_runs_3xtf32_on_the_tensor_cores():
-    """The fp32 source's dQ and dK/dV run tf32 products on the tensor cores
-    with both operands split, the small terms first (lo*hi, hi*lo, hi*hi):
-    mma.sync at any head dim, wgmma (tf32, K-major) at 64; they sum without
-    atomics (but for the phase-timing build), keep the SIMT fp32 forward, have the split entry the wrapper
-    calls, and the tiles and shared-memory budgets F32_DKV_TILES assumes."""
+    """The fp32 source's forward, dQ and dK/dV run tf32 products on the
+    tensor cores with both operands split, the small terms first (lo*hi,
+    hi*lo, hi*hi): mma.sync at any head dim, wgmma (tf32, K-major) at 64,
+    picked on the C side for the forward as for the backward; they sum
+    without atomics (but for the phase-timing build), the SIMT forward is
+    gone, the split entry the wrapper calls is there, and the tiles and
+    shared-memory budgets F32_DKV_TILES assumes."""
     src = open(os.path.join(kernels.CSRC_DIR, f"{F32_SOURCE}.cu")).read()
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     body = src[src.index("mma_3xtf32(float"):]
@@ -218,7 +262,9 @@ def test_f32_source_runs_3xtf32_on_the_tensor_cores():
         assert len(calls) == 3 and len({c[0] for c in calls}) == 1
         (_, a1, b1), (_, a2, b2), (_, a3, b3) = calls   # lo hi, hi lo, hi hi
         assert a2 == a3 and b1 == b3 and a1 != a2 and b1 != b2
-    assert src.count("hopper::wgmma_tf32_") == 21
+    # the forward's S and P V (6), dQ's S, dP and dS K (9), dK/dV's S^T,
+    # dP^T, P^T dO and dS^T Q (12)
+    assert src.count("hopper::wgmma_tf32_") == 27
     # outside the phase-timing build (-DF32_PHASE_TIMES, a measurement only)
     timed = re.compile(r"#ifdef F32_PHASE_TIMES.*?#endif", re.S)
     kept = timed.sub("", src).lower().replace("no\n// atomics", "").replace("no atomics", "")
@@ -226,7 +272,17 @@ def test_f32_source_runs_3xtf32_on_the_tensor_cores():
     for name in ("flash_attention_fwd_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32",
                  "flash_attention_dkv_split_f32"):
         assert f'extern "C" int {name}(' in src
-    assert "fwd_f32_kernel" in src and "fmaf(a[i], b[j], acc[i][j])" in src
+    assert "fwd_f32_kernel" not in src and "fmaf(a[i], b[j], acc[i][j])" not in src
+    assert "fwd_wg_kernel<<<grid" in src and "fwd_tc_kernel<DP, W><<<grid" in src
+    fwd = src[src.index("int fwd(const void* q"):]
+    fwd = fwd[:fwd.index("\n}\n")]
+    assert "const bool wg = DP == 64 && vec;" in fwd and "(Sq + 127) / 128" in fwd
+    for kernel in ("fwd_wg_kernel(", "fwd_tc_kernel("):
+        body = src[src.index(f"\n{kernel}"):]
+        body = body[:body.index("\n}\n")]
+        # the products' sums in fresh accumulators, added to O once a tile
+        assert "part" in body or "accumulate<DP>(acc, s" in body, kernel
+        assert "online_softmax(s, m, l, alpha" in body, kernel
     assert re.search(r"constexpr int smem = 6 \* kRows \* DP \* 4 \+ 2 \* 2 \* kRows \* 4;", src)
     assert "const bool wg = DP == 64 && vec;" in src and "constexpr int kQT = 32;" in src
     assert "dkv_wg_kernel<<<grid" in src and "(Skv + 127) / 128" in src
