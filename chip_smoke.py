@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-It drives the port's four paths at the sd2_base widths through the entry
+It drives the port's five paths at the sd2_base widths through the entry
 points a user calls, DiFashion's GOR generation, the generation service
-(DPM-Solver++ at 20 steps, the fast-serving recipe), its training step and the
-catalog precompute (VAE encode at 512 px), and checks every hand-written
+(DPM-Solver++ at 20 steps, the fast-serving recipe), its training step, the
+train command around it (checkpoints and a resume) and the catalog
+precompute (VAE encode at 512 px), and checks every hand-written
 kernel of those paths against its plain PyTorch version. Phases, one JSON
 line each:
 
@@ -116,7 +117,19 @@ line each:
      warm-up step: seconds by CUDA events, peak memory, launches (the fp32
      forward, dQ and dK/dV kernels under every attention), and one profiled
      step's device time with the fp32 forward's share and the fp32 dQ and
-     dK/dV kernels'.
+     dK/dV kernels';
+ 14. train_cli: the train command (`cli/train.py::main --device cuda`) at
+     the sd2_base widths with the recipe on a synthetic 64-outfit dataset:
+     3 steps and checkpoint-3 (~14 GB, in a temporary directory deleted at
+     the end), the checkpoint loaded into a fresh template and held bit for
+     bit against the state the command returned, then a resume from it and
+     step 4; per leg its seconds per step, peak memory and launches (every
+     step's equal to the train phase's), the checkpoint's bytes and its
+     snapshot, write and load seconds, and the logged losses read back from
+     the JSONL and the TensorBoard events;
+ 15. info: `cli/info.py --json` on the card: its device kind, and its
+     memory plan (on the meta device) against the train command's live
+     state (exactly) and the train phase's peak.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
@@ -2130,7 +2143,7 @@ def phase_train(model, mm_paths):
     for p in model.parameters():
         p.grad = None
     torch.cuda.empty_cache()
-    return train_launches
+    return train_launches, peak, seconds
 
 
 def phase_profile_train(model):
@@ -2246,6 +2259,303 @@ def phase_train_fp32(model):
         raise AssertionError(f"train_fp32: launches {launches}, loss {out['loss']}, "
                              f"skipped {out['update_skipped']}")
     return out
+
+
+TRAIN_CLI_ROWS, TRAIN_CLI_ITEMS = 64, 128   # the synthetic outfit table, the catalog
+
+
+def write_train_cli_dataset(root, cfg):
+    """A synthetic dataset for the train command: an outfit table of 64 rows x
+    4 items over a 128-item catalog and 5 categories, a history table, and
+    the catalog's VAE moments [128, 64, 64, 4] (mean ~ N(0, 4^2), logvar in
+    [-8, -2]) written through the port's `save_processed`."""
+    import numpy as np
+
+    from difashion_tpu_torch.data.precompute import save_processed
+
+    rng = np.random.RandomState(11)
+    n = TRAIN_CLI_ROWS
+    table = {"uids": list(rng.randint(1, 9, n)), "oids": list(range(1000, 1000 + n)),
+             "outfits": [list(o) for o in rng.randint(1, TRAIN_CLI_ITEMS, (n, 4))],
+             "category": [list(c) for c in rng.randint(1, 6, (n, 4))]}
+    history = {u: {c: list(rng.randint(1, TRAIN_CLI_ITEMS, 3)) for c in range(1, 6)}
+               for u in range(1, 9)}
+    for name, d in (("train.npy", table), ("train_history.npy", history),
+                    ("id_cate_dict.npy", {1: "pants", 2: "shoes", 3: "bag", 4: "t-shirt",
+                                          5: "earrings"})):
+        np.save(os.path.join(root, name), np.array(d, dtype=object))
+    s, C = cfg.unet.sample_size, cfg.vae.latent_channels
+    shape = (TRAIN_CLI_ITEMS, s, s, C)
+    save_processed(root, "all_item_moments",
+                   mean=(rng.randn(*shape) * 4.0).astype(np.float32),
+                   logvar=rng.uniform(-8, -2, shape).astype(np.float32))
+
+
+class TrainCliProbe:
+    """Instruments `cli/train.py` from outside for the train_cli phase: the
+    step that `build_train_step` returns is wrapped to record each call's
+    launches (the difference of the counters around it), the TrainState's
+    step at entry, the host clock at entry (the loop's interval from one step
+    to the next: batch assembly and the step's dispatch and sync) and CUDA
+    events around it; `checkpoint.snapshot` (the device -> host copy),
+    `CheckpointStore._write` (the files, on the writer thread) and
+    `CheckpointStore.load` are timed. `restore()` puts the originals back."""
+
+    def __init__(self):
+        from difashion_tpu_torch import checkpoint
+        from difashion_tpu_torch.cli import train as train_cli
+
+        self.steps, self.times = [], {"snapshot": [], "write": [], "load": []}
+        self._orig = [(train_cli, "build_train_step", train_cli.build_train_step),
+                      (checkpoint, "snapshot", checkpoint.snapshot),
+                      (checkpoint.CheckpointStore, "_write", checkpoint.CheckpointStore._write),
+                      (checkpoint.CheckpointStore, "load", checkpoint.CheckpointStore.load)]
+        build, snapshot, write, load = (o[2] for o in self._orig)
+        probe = self
+
+        def timed(kind, fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                probe.times[kind].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        def build_train_step(model, cfg):
+            import torch
+
+            from difashion_tpu_torch.nn import kernels
+
+            step, init = build(model, cfg)
+
+            def counted(state, *args):
+                before = dict(kernels.LAUNCHES)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                at, t0 = state.step, time.perf_counter()
+                ev[0].record()
+                out = step(state, *args)
+                ev[1].record()
+                probe.steps.append({"at_step": at, "events": ev, "host_start": t0, "launches": {
+                    k: kernels.LAUNCHES[k] - before.get(k, 0) for k in kernels.COUNTERS}})
+                return out
+            return counted, init
+
+        train_cli.build_train_step = build_train_step
+        checkpoint.snapshot = timed("snapshot", snapshot)
+        checkpoint.CheckpointStore._write = timed("write", write)
+        checkpoint.CheckpointStore.load = timed("load", load)
+
+    def restore(self):
+        for obj, name, fn in self._orig:
+            setattr(obj, name, fn)
+
+
+def state_tensors(state):
+    """The tensors of a TrainState with AdamW: {group: [tensor]}."""
+    return {"params": list(state.params), "mu": list(state.opt_state.mu),
+            "nu": list(state.opt_state.nu), "ema": list(state.ema.params)}
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_train_cli(train_launches, train_seconds):
+    """The train command (`cli/train.py::main --device cuda`) at the sd2_base
+    widths on a synthetic dataset written into a temporary directory, with
+    the sd2_base recipe (`Config.preset_eta01()`: fp32 master weights, bf16
+    autocast, AdamW, EMA, min-SNR, 2 outfits x 4 items), seeded random
+    weights and the hash tokenizer, through a config file with
+    checkpointing_steps 3 and checkpoints_total_limit 1. Leg 1 runs steps
+    0-2 and saves checkpoint-3; its checkpoint is loaded through
+    `CheckpointStore.load` into a fresh template and held bit for bit
+    against the state leg 1 returned; leg 2 resumes from the latest and runs
+    step 3. Checks: every step's launches equal the train phase's for every
+    counter; leg 2 starts at step 3 and ends at step 4; its peak memory is
+    within one trainable copy of leg 1's; the JSONL losses are finite and
+    equal the TensorBoard events' (read back through the port's
+    `read_events`). Prints seconds per step (CUDA events around each step,
+    and the host's interval between steps beside the train phase's
+    `train_seconds`), peak memory, and the bytes and seconds of the
+    checkpoint's write and load. Returns the bytes of leg 1's TrainState
+    tensors by group."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from difashion_tpu_torch.checkpoint import CheckpointStore
+    from difashion_tpu_torch.cli import train as train_cli
+    from difashion_tpu_torch.config import Config
+    from difashion_tpu_torch.core.tensorboard import read_events
+    from difashion_tpu_torch.engine.train import AdamState, EMAState, TrainState
+    from difashion_tpu_torch.nn import kernels
+
+    root = tempfile.mkdtemp(prefix="difashion_train_cli_")
+    probe = TrainCliProbe()
+    try:
+        cfg = Config.preset_eta01()
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpointing_steps=3, checkpoints_total_limit=1))
+        data, out = os.path.join(root, "data"), os.path.join(root, "ckpt")
+        os.makedirs(data)
+        write_train_cli_dataset(data, cfg.model)
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        args = ["--data_path", data, "--output_dir", out, "--config", cfg_path,
+                "--device", "cuda"]
+        free_disk = shutil.disk_usage(root).free
+
+        def leg(steps, *extra):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            first = len(probe.steps)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            state, model = train_cli.main(args + ["--max_train_steps", str(steps), *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals = dict(kernels.LAUNCHES)
+            rows = probe.steps[first:]
+            return state, model, {
+                "wall_seconds": wall, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "steps": len(rows), "first_step": rows[0]["at_step"] if rows else None,
+                "step_ms": [r["events"][0].elapsed_time(r["events"][1]) for r in rows],
+                "host_interval_ms": [(b["host_start"] - a["host_start"]) * 1e3
+                                     for a, b in zip(rows, rows[1:])],
+                "launches": totals}, rows
+
+        state, model, leg1, rows1 = leg(3)
+        trainable = sum(t.numel() * t.element_size() for t in state.params)
+        live = {k: sum(t.numel() * t.element_size() for t in v)
+                for k, v in state_tensors(state).items()}
+        live_bytes = {"params_trainable": live["params"], "opt_state": live["mu"] + live["nu"],
+                      "ema": live["ema"]}
+        ckpt_bytes = dir_bytes(os.path.join(out, "checkpoint-3"))
+        frozen_bytes = os.path.getsize(os.path.join(out, "frozen.pt"))
+        end1 = (state.step, state.opt_state.count, state.ema.step)
+        steps_after_leg1 = CheckpointStore(out).all_steps()
+
+        # the checkpoint against leg 1's state, loaded into a fresh template
+        empty = lambda ts: [torch.empty_like(t) for t in ts]
+        template = TrainState(names=list(state.names), params=empty(state.params),
+                              opt_state=AdamState(0, empty(state.opt_state.mu),
+                                                  empty(state.opt_state.nu)),
+                              ema=EMAState(empty(state.ema.params), 0))
+        torch.cuda.synchronize()
+        loaded = CheckpointStore(out).load(template)
+        torch.cuda.synchronize()
+        unequal = [f"{group} {name}"
+                   for group, ts in state_tensors(state).items()
+                   for name, a, b in zip(state.names, ts, state_tensors(loaded)[group])
+                   if not torch.equal(a, b)]
+        restored = {"bit_equal": not unequal, "unequal": unequal[:5],
+                    "step": loaded.step, "opt_count": loaded.opt_state.count,
+                    "ema_step": loaded.ema.step, "expected": list(end1)}
+        del state, model, template, loaded
+        torch.cuda.empty_cache()
+
+        state, model, leg2, rows2 = leg(4, "--resume_from_checkpoint", "latest")
+        end2 = (state.step, state.opt_state.count, state.ema.step)
+        steps_after_leg2 = CheckpointStore(out).all_steps()
+        del state, model
+        torch.cuda.empty_cache()
+
+        recs = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+        tb = os.path.join(out, "tb")
+        events = [e for f in sorted(os.listdir(tb)) for e in read_events(os.path.join(tb, f))]
+        tb_loss = {e["step"]: e["scalars"]["loss"] for e in events if "loss" in e["scalars"]}
+        logged = [{"step": r["step"], "loss": r["loss"], "tb_loss": tb_loss.get(r["step"]),
+                   "step_time_s": r["step_time_s"]} for r in recs if "loss" in r]
+        times = probe.times
+    finally:
+        probe.restore()
+        shutil.rmtree(root, ignore_errors=True)
+
+    want = all_counts(train_launches)
+    bad_steps = [{"leg": i, "at_step": r["at_step"], "launches": r["launches"]}
+                 for i, rows in ((1, rows1), (2, rows2)) for r in rows
+                 if r["launches"] != want]
+    for lg in (leg1, leg2):
+        lg["seconds_per_step"] = statistics.median(lg["step_ms"]) / 1e3
+    row = {"phase": "train_cli", "config": "sd2_base", "recipe": "Config.preset_eta01()",
+           "command": "cli/train.py::main --device cuda", "rows_per_step": TRAIN_ROWS,
+           "dataset": {"outfits": TRAIN_CLI_ROWS, "items": TRAIN_CLI_ITEMS},
+           "train_phase_seconds_per_step": train_seconds,
+           "leg1": leg1, "leg2": leg2, "logged": logged,
+           "checkpoint": {"bytes": ckpt_bytes, "frozen_bytes": frozen_bytes,
+                          "snapshot_seconds": times["snapshot"],
+                          "write_seconds": times["write"], "load_seconds": times["load"],
+                          "free_disk_bytes": free_disk},
+           "trainable_bytes": trainable, "live_state_bytes": live_bytes,
+           "restored": restored, "end_leg1": list(end1), "end_leg2": list(end2),
+           "checkpoints_after": {"leg1": steps_after_leg1, "leg2": steps_after_leg2},
+           "peak_growth_bytes": leg2["peak_memory_bytes"] - leg1["peak_memory_bytes"]}
+    emit(row)
+    problems = []
+    if bad_steps:
+        problems.append(f"launches differ from the train phase's {want}: {bad_steps}")
+    if not all(want[k] > 0 for k in ("flash_attention_fwd", "flash_attention_dq",
+                                     "flash_attention_dkv", "group_norm_silu",
+                                     "skinny_matmul")):
+        problems.append(f"a kernel of the path was not launched: {want}")
+    if [r["at_step"] for r in rows1] != [0, 1, 2] or [r["at_step"] for r in rows2] != [3]:
+        problems.append(f"steps: leg 1 {[r['at_step'] for r in rows1]}, "
+                        f"leg 2 {[r['at_step'] for r in rows2]}")
+    for lg, n in ((leg1, 3), (leg2, 1)):
+        if lg["launches"] != {k: n * v for k, v in want.items()}:
+            problems.append(f"leg launches {lg['launches']} != {n} x a step's")
+    if end1 != (3, 3, 3) or end2 != (4, 4, 4):
+        problems.append(f"ends {end1}, {end2}")
+    if not restored["bit_equal"] or [restored["step"], restored["opt_count"],
+                                     restored["ema_step"]] != list(end1):
+        problems.append(f"restored state {restored}")
+    if row["peak_growth_bytes"] > trainable:
+        problems.append(f"leg 2's peak exceeds leg 1's by {row['peak_growth_bytes']} bytes, "
+                        f"more than one trainable copy ({trainable})")
+    if steps_after_leg1 != [3] or steps_after_leg2 != [4]:
+        problems.append(f"checkpoints {steps_after_leg1}, {steps_after_leg2}")
+    if [r["step"] for r in logged] != [3, 4] or not all(
+            math.isfinite(r["loss"]) and r["loss"] == r["tb_loss"] for r in logged):
+        problems.append(f"logged losses {logged}")
+    if problems:
+        raise AssertionError("train_cli: " + "; ".join(problems))
+    return live_bytes
+
+
+def phase_info(live_state_bytes, train_peak):
+    """`cli/info.py::main(["--json"])` on the card: its device kind must be
+    the card's name, its planned params_trainable + opt_state + ema (on the
+    meta device) the bytes of the train command's live TrainState exactly,
+    and its data-parallel bytes per device at most the train phase's
+    measured peak."""
+    import contextlib
+    import io
+
+    import torch
+
+    from difashion_tpu_torch.cli import info
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        info.main(["--json"])
+    seconds = time.perf_counter() - t0
+    got = json.loads(buf.getvalue())
+    acc = got["hbm_accounting"]
+    planned = sum(acc["buckets"][k] for k in ("params_trainable", "opt_state", "ema"))
+    live = sum(live_state_bytes.values())
+    emit({"phase": "info", "seconds": seconds, **got, "planned_state_bytes": planned,
+          "live_state_bytes": live, "train_phase_peak_bytes": train_peak})
+    if not (got["device_kind"] == torch.cuda.get_device_name(0) and got["backend"] == "cuda"
+            and got["devices"] == torch.cuda.device_count()
+            and all(acc["buckets"][k] == v for k, v in live_state_bytes.items())
+            and acc["per_chip_bytes_dp"] <= train_peak):
+        raise AssertionError(f"info: {got}, live state {live_state_bytes}, "
+                             f"train peak {train_peak}")
 
 
 def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
@@ -2449,9 +2759,13 @@ def main():
     # fp32 master weights under bf16 autocast
     model = create_difashion(cfg, seed=0, device="cuda").prepare_for_training()
     phase_unet_grad(model, mm_paths)
-    train_launches = phase_train(model, mm_paths)
+    train_launches, train_peak, train_seconds = phase_train(model, mm_paths)
     phase_profile_train(model)
     train_fp32 = phase_train_fp32(model)
+    del model
+    torch.cuda.empty_cache()
+    live_state_bytes = phase_train_cli(train_launches, train_seconds)
+    phase_info(live_state_bytes, train_peak)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                       f32_results, sd15_f32_results, bwd_f32_results, f32_launches,

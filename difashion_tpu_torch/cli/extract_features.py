@@ -6,11 +6,12 @@ scaled modes, as `difashion_tpu/cli/extract_features.py` writes them
         --data_path <dir> --img_folder_path <images> --image_paths_npy <npy> [--tiny]
 
 Runs on the card unless `--device cpu`, in fp32 as the JAX CLI does. The
-catalog CLIP features
-(`--stage clip`, and `all`) come with the evaluation slice, and
-`--pretrained_dir` with the checkpoint slice: both raise NotImplementedError.
-Without pretrained weights the VAE has the port's seeded random weights
-(seed 0), as the JAX CLI runs without `--pretrained_dir`.
+catalog CLIP features (`--stage clip`, and `all`) come with the evaluation
+slice and raise NotImplementedError. `--pretrained_dir` reads the VAE (and
+the other SD towers) from a local diffusers directory
+(`core/importer.py::import_sd_checkpoint`); without it the VAE has the
+port's seeded random weights (seed 0), as the JAX CLI runs without
+`--pretrained_dir`.
 """
 from __future__ import annotations
 
@@ -64,10 +65,6 @@ def main(argv=None):
         raise NotImplementedError(
             f"--stage {args.stage}: the catalog CLIP features come with the port's "
             "evaluation slice; run --stage vae")
-    if args.pretrained_dir:
-        raise NotImplementedError(
-            "--pretrained_dir: reading a diffusers checkpoint comes with the port's "
-            "checkpoint slice")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")
     from difashion_tpu_torch.models.difashion import create_difashion
@@ -76,6 +73,11 @@ def main(argv=None):
     image_paths = load_npy(args.image_paths_npy)
     n_items = len(image_paths)
     model = create_difashion(cfg.model, seed=0, device=args.device)
+    if args.pretrained_dir:
+        from difashion_tpu_torch.core.importer import import_sd_checkpoint
+
+        import_sd_checkpoint(args.pretrained_dir, model)
+        log.info("imported pretrained SD weights from %s", args.pretrained_dir)
     loader = make_item_loader(args.img_folder_path, image_paths, cfg.model.vae.sample_size)
     log.info("VAE-encoding %d catalog items on %s ...", n_items, args.device)
     moments = encode_catalog(model, loader, n_items, batch_size=args.batch_size,

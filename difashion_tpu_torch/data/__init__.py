@@ -6,6 +6,7 @@ from difashion_tpu_torch.data.datasets import (
     FashionData,
     HistLatentStore,
     OutfitTable,
+    TrainLoader,
     load_npy,
     load_npy_dict,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "FashionData",
     "HistLatentStore",
     "OutfitTable",
+    "TrainLoader",
     "load_npy",
     "load_npy_dict",
     "EVAL_SPECIAL_CATES",

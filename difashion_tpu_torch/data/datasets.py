@@ -1,7 +1,7 @@
 """`.npy` schema readers for the iFashion / Polyvore-U contract, and the
 per-(user, category) history latents. Copy of
-`difashion_tpu/data/datasets.py` (the shuffling `TrainLoader` comes with the
-training drivers).
+`difashion_tpu/data/datasets.py`, with the shuffling `TrainLoader` of the
+training loop.
 
 Schemas:
   * train.npy / fitb_{valid,test}.npy: dict of parallel lists
@@ -144,3 +144,47 @@ class HistLatentStore:
             for j in range(olen):
                 out[i, j] = self.lookup(int(uids[i]), int(category[i, j]))
         return out
+
+
+class TrainLoader:
+    """Shuffling epoch iterator with step-accurate resume: the permutation of
+    an epoch is a pure function of (seed, epoch), so `batch_at(step)` after a
+    restart gives the batch an uninterrupted run would have drawn."""
+
+    def __init__(self, table: OutfitTable, batch_size: int, seed: int = 123,
+                 drop_last: bool = True, shuffle: bool = True):
+        self.table = table
+        self.batch_size = batch_size
+        self.seed = seed
+        self.drop_last = drop_last
+        self.shuffle = shuffle
+        self._order_cache = None
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.table)
+        spe = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        if spe == 0:
+            raise ValueError(
+                f"train table has {n} rows < batch_size {self.batch_size} "
+                f"(drop_last={self.drop_last}): no full batch can be formed")
+        return spe
+
+    def epoch_order(self, epoch: int) -> np.ndarray:
+        if not self.shuffle:
+            return np.arange(len(self.table))
+        # one-slot cache: the loop asks for the same epoch's permutation batch
+        # after batch
+        if self._order_cache is not None and self._order_cache[0] == epoch:
+            return self._order_cache[1]
+        rng = np.random.RandomState((self.seed * 100003 + epoch) % (2 ** 31))
+        order = rng.permutation(len(self.table))
+        self._order_cache = (epoch, order)
+        return order
+
+    def batch_at(self, global_step: int) -> dict:
+        """{uids, oids, outfits, category} of the batch at `global_step`."""
+        epoch, step = divmod(global_step, self.steps_per_epoch())
+        idx = self.epoch_order(epoch)[step * self.batch_size: (step + 1) * self.batch_size]
+        t = self.table
+        return {"uids": t.uids[idx], "oids": t.oids[idx], "outfits": t.outfits[idx],
+                "category": t.category[idx]}

@@ -988,3 +988,68 @@ def test_skinny_matmul_autograd_matches_plain(dev):
     x.grad = w.grad = None
     SkinnyMatmul.apply(x, w, True).backward(g)
     assert _mm_close(dx, x.grad, torch.bfloat16) and torch.equal(dw, w.grad)
+
+
+def _tiny_train_dataset(path, n_items=16):
+    """A synthetic dataset for the train command at the tiny config: 6
+    outfits, a history, 5 categories and the catalog's [16, 8, 8, 4] moments."""
+    from difashion_tpu_torch.data.precompute import save_processed
+
+    rng = np.random.RandomState(0)
+    path.mkdir()
+    table = {"uids": list(rng.randint(1, 4, 6)), "oids": list(range(100, 106)),
+             "outfits": [list(o) for o in rng.randint(1, n_items, (6, 4))],
+             "category": [list(c) for c in rng.randint(1, 6, (6, 4))]}
+    for name, d in (("train.npy", table), ("train_history.npy", {1: {2: [3, 4]}}),
+                    ("id_cate_dict.npy", {c: f"cate{c}" for c in range(1, 6)})):
+        np.save(path / name, np.array(d, dtype=object))
+    save_processed(str(path), "all_item_moments",
+                   mean=rng.randn(n_items, 8, 8, 4).astype(np.float32),
+                   logvar=rng.uniform(-8, -2, (n_items, 8, 8, 4)).astype(np.float32))
+    return str(path)
+
+
+def test_train_cli_tiny_on_the_card(dev, tmp_path):
+    from difashion_tpu_torch.checkpoint import CheckpointStore
+    from difashion_tpu_torch.cli import train as train_cli
+    from difashion_tpu_torch.engine.train import AdamState, EMAState, TrainState
+
+    data, out = _tiny_train_dataset(tmp_path / "data"), str(tmp_path / "ckpt")
+    args = ["--tiny", "--data_path", data, "--output_dir", out]   # --device cuda by default
+    kernels.reset_launches()
+    state, model = train_cli.main(args + ["--max_train_steps", "3"])
+    launches = dict(kernels.LAUNCHES)
+    assert state.params[0].is_cuda and state.step == 3
+    # bf16 autocast: every attention of the 3 steps through the 16-bit kernels
+    for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+                 "group_norm_silu"):
+        assert launches[name] > 0 and launches[name] % 3 == 0, launches
+    assert launches["flash_attention_fwd_f32"] == 0
+    empty = lambda ts: [torch.empty_like(t) for t in ts]
+    template = TrainState(names=list(state.names), params=empty(state.params),
+                          opt_state=AdamState(0, empty(state.opt_state.mu),
+                                              empty(state.opt_state.nu)),
+                          ema=EMAState(empty(state.ema.params), 0))
+    loaded = CheckpointStore(out).load(template)
+    assert loaded.step == 3 and loaded.opt_state.count == 3 and loaded.ema.step == 3
+    for a, b in zip(state.params + state.opt_state.mu + state.opt_state.nu + state.ema.params,
+                    loaded.params + loaded.opt_state.mu + loaded.opt_state.nu
+                    + loaded.ema.params):
+        assert torch.equal(a, b)
+    kernels.reset_launches()
+    resumed, _ = train_cli.main(args + ["--max_train_steps", "4",
+                                        "--resume_from_checkpoint", "latest"])
+    assert resumed.step == 4 and CheckpointStore(out).all_steps() == [3, 4]
+    assert dict(kernels.LAUNCHES) == {k: v // 3 for k, v in launches.items()}
+
+
+def test_info_reports_the_card(dev, capsys):
+    import json
+
+    from difashion_tpu_torch.cli import info
+
+    out = info.main(["--json", "--model", "tiny"])
+    assert json.loads(capsys.readouterr().out) == out
+    assert out["backend"] == "cuda" and out["devices"] == torch.cuda.device_count()
+    assert out["device_kind"] == torch.cuda.get_device_name(0)
+    assert out["cuda"] == torch.version.cuda and out["hbm_accounting"]["fits_dp"]

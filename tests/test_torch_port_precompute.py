@@ -265,7 +265,10 @@ def test_extract_features_cli_writes_a_cache_the_jax_package_reads(tmp_path):
     store = jdatasets.HistLatentStore.from_catalog({1: {2: [3, 4]}}, latents)
     np.testing.assert_allclose(store.lookup(1, 2), (latents[3] + latents[4]) / 2, rtol=1e-6)
 
-    for extra in (["--stage", "clip"], ["--stage", "all"], ["--pretrained_dir", "x"]):
+    for extra in (["--stage", "clip"], ["--stage", "all"]):
         with pytest.raises(NotImplementedError):
             port_main(args + extra)
+    # --pretrained_dir reads a diffusers directory (test_torch_port_importer.py)
+    with pytest.raises(FileNotFoundError, match="no weights file"):
+        port_main(args + ["--pretrained_dir", str(tmp_path / "no-such-dir")])
     assert port_main(["no-such-command"]) == 2
