@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-It drives the port's five paths at the sd2_base widths through the entry
+It drives the port's paths at the sd2_base widths through the entry
 points a user calls, DiFashion's GOR generation, the generation service
 (DPM-Solver++ at 20 steps, the fast-serving recipe), its training step, the
-train command around it (checkpoints and a resume) and the catalog
-precompute (VAE encode at 512 px), and checks every hand-written
+train command around it (checkpoints and a resume, and a checkpoint in the
+JAX package's layout), the catalog precompute (VAE encode at 512 px) and
+the catalog features command with its evaluation towers (ViT-H/14 at full
+width), and checks every hand-written
 kernel of those paths against its plain PyTorch version. Phases, one JSON
 line each:
 
@@ -77,10 +79,26 @@ line each:
      (`--tiny --device cuda`) and its /healthz;
   7b. precompute: `data/precompute.py::encode_catalog` over 200 synthetic
      catalog items at 512 px (3 batches of 64 and one of 8) through the
-     sd2_base VAE in bf16, then `build_processed_cache` on a synthetic
-     outfit table and history; seconds per 1000 items, peak memory, 22
-     GroupNorm launches per batch, and one batch's moments through the
-     kernels and through the plain versions, both against fp32;
+     sd2_base VAE in bf16, from in-memory arrays (no decode), then
+     `build_processed_cache` on a synthetic outfit table and history;
+     seconds per 1000 items, peak memory, 22 GroupNorm launches per batch,
+     and one batch's moments through the kernels and through the plain
+     versions, both against fp32;
+  7c. native_loader: the native image library built from
+     `native/difashion_io.cc` (its seconds; where it cannot be built, why,
+     and the PIL path is the command's), 256 synthetic 512 px JPEG and RGBA
+     PNG items through the native path (one by one and on its thread pool)
+     and the PIL path, ms per item each, and native against PIL;
+  7d. eval_towers: every evaluation tower at full width in fp32 (OpenCLIP
+     ViT-H/14 image on 200 images and text on the 50 eval prompts, both
+     InceptionV3s on 64 images at 299, LPIPS-VGG16 on 16 pairs at 512, the
+     compatibility net on 256 outfits): ms per batch, items per second, peak
+     bytes, and 2 rows against the same tower on the CPU in fp32;
+  7e. extract_clip: `extract-features --stage all --device cuda` over those
+     256 items at the sd2_base widths: the VAE stage's files and launches
+     (the precompute's per batch), the CLIP features bit for bit against a
+     direct `Extractors.clip_image_embs`, the history means, and seconds per
+     1000 items per stage split into the loader's and the rest;
   8. kernel_bwd: the dQ and dK/dV kernels against the plain backward at the
      training UNet's attention shapes (batch 8 = 2 outfits x 4 items) and the
      ragged ones, both held against the plain backward in fp32, with their
@@ -129,7 +147,11 @@ line each:
      the JSONL and the TensorBoard events;
  15. info: `cli/info.py --json` on the card: its device kind, and its
      memory plan (on the meta device) against the train command's live
-     state (exactly) and the train phase's peak.
+     state (exactly) and the train phase's peak;
+ 16. jax_checkpoint: an sd2_base train state written in the JAX package's
+     layout (flax msgpack), read into a fresh cuda state bit for bit, the
+     read's seconds, host peak RSS and device peak against the fresh
+     state's, then one train step from it.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
@@ -612,6 +634,7 @@ def phase_precompute(model, mm_paths):
            "cache_ok": cache_ok, "gate_batch": n, "kernel_vs_fp32_rel_l2": fast_ref,
            "plain_vs_fp32_rel_l2": plain_ref, "rel_l2": rel(fast, plain),
            "host_loader_ms_per_batch": loader_ms,
+           "loader": "in-memory uint8 arrays to float (no file, no decode)",
            "encode_profile": dict(prof, what=f"one VAE encode, batch {PRECOMPUTE_BATCH}")}
     emit(row)
     if not (launches == want and finite and shapes_ok and cache_ok
@@ -2558,6 +2581,417 @@ def phase_info(live_state_bytes, train_peak):
                              f"train peak {train_peak}")
 
 
+# ---- slice 12: the native loader, JAX checkpoints, the evaluation towers ----------
+
+NATIVE_ITEMS = 256          # synthetic catalog items, half JPEG, half RGBA PNG
+NATIVE_MEAN_TOL, NATIVE_MAX_TOL = 0.01, 0.2   # tests/test_native_io.py's bound vs PIL
+# the eval towers on the card (fp32, TF32 off) vs the same tower on the CPU in
+# fp32 at 2 rows: the same fp32 arithmetic summed in another order
+EVAL_REL_L2_TOL = 1e-4
+CLIP_IMAGES, INCEPTION_IMAGES, LPIPS_PAIRS, COMPAT_OUTFITS = 200, 64, 16, 256
+
+
+def write_synthetic_catalog(root, n, px=512, seed=13):
+    """n catalog images under root: even items JPEG (RGB, quality 90), odd
+    items RGBA PNG, 512 px wide and 384-512 px high (padded to a square by
+    the catalog pipeline), smooth colour fields with noise on white. Returns
+    the file names."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    names = []
+    for i in range(n):
+        h = int(rng.randint(384, px + 1))
+        low = rng.randint(0, 256, (8, 8, 3)).astype(np.float32)
+        field = np.kron(low, np.ones((px // 8, px // 8, 1)))[:h]
+        img = np.clip(field + rng.randn(h, px, 3) * 12, 0, 255).astype(np.uint8)
+        img[:, :24] = 255
+        if i % 2:
+            alpha = np.full((h, px, 1), 255, np.uint8)
+            alpha[: h // 6] = 0
+            name = f"item{i:04d}.png"
+            Image.fromarray(np.concatenate([img, alpha], axis=2), "RGBA").save(
+                os.path.join(root, name))
+        else:
+            name = f"item{i:04d}.jpg"
+            Image.fromarray(img).save(os.path.join(root, name), quality=90)
+        names.append(name)
+    return names
+
+
+def phase_native_loader(img_dir, names):
+    """The native image library (`data/native.py`): its build from
+    `native/difashion_io.cc` and its seconds (or the failed attempt's), then the catalog pipeline over
+    NATIVE_ITEMS synthetic 512 px items by the native path (one at a time,
+    and batched on its thread pool) and by the PIL path, ms per item each,
+    and the native images against PIL's (tests/test_native_io.py's bound).
+    Where the library cannot be built (no libjpeg / libpng headers), the
+    command takes the PIL path: the row says so and why, and times PIL."""
+    import numpy as np
+    from PIL import Image
+
+    from difashion_tpu_torch.cli.extract_features import make_item_loader
+    from difashion_tpu_torch.data import native
+    from difashion_tpu_torch.data.preprocessing import prepare_catalog_image
+
+    t0 = time.perf_counter()
+    available = native.native_available()      # builds it (nothing is built in a checkout)
+    build_s = time.perf_counter() - t0
+    loader = make_item_loader(img_dir, names, 512)
+
+    def pil(i):
+        img = Image.open(os.path.join(img_dir, names[i]))
+        return np.asarray(prepare_catalog_image(img, 512), np.float32) / 127.5 - 1.0
+
+    t0 = time.perf_counter()
+    ref = np.stack([pil(i) for i in range(len(names))])
+    pil_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    row = {"phase": "native_loader", "items": len(names), "px": 512,
+           "formats": "JPEG (RGB) and PNG (RGBA), 512 x 384..512",
+           "native_available": available, "native_unavailable_reason": native.unavailable(),
+           "build_seconds": build_s,
+           "command_loader": loader.kind, "pil_ms_per_item": pil_ms,
+           "cpu_cores": os.cpu_count()}
+    ok = loader.kind == ("native" if available else "pil") and np.isfinite(ref).all()
+    if available:
+        t0 = time.perf_counter()
+        one = np.stack([loader(i) for i in range(len(names))])
+        row["native_ms_per_item"] = (time.perf_counter() - t0) * 1e3 / len(names)
+        pool = native.NativeCatalogLoader([os.path.join(img_dir, n) for n in names], 512)
+        t0 = time.perf_counter()
+        batched = pool.load(list(range(len(names))))
+        row["native_pool_ms_per_item"] = (time.perf_counter() - t0) * 1e3 / len(names)
+        pool.close()
+        diff = np.abs(one - ref)
+        row.update(mean_abs_diff=float(diff.mean()), max_abs_diff=float(diff.max()),
+                   pool_equals_single=bool(np.array_equal(batched, one)))
+        ok = ok and row["pool_equals_single"] and diff.mean() < NATIVE_MEAN_TOL \
+            and diff.max() < NATIVE_MAX_TOL
+    emit(row)
+    if not ok:
+        raise AssertionError(f"native_loader: {row}")
+    return loader.kind
+
+
+def rss_bytes():
+    """This process's resident set (Linux /proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class RssPeak:
+    """The largest resident set seen while the block runs, sampled every
+    2 ms on a thread (VmHWM cannot be reset in the card's sandbox)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = rss_bytes(), threading.Event()
+
+        def watch():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, rss_bytes())
+        self._thread = threading.Thread(target=watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def phase_jax_checkpoint(train_launches):
+    """The JAX package's checkpoint layout at the sd2_base widths: a train
+    state of the recipe (fp32 parameters, AdamW moments seeded off zero,
+    EMA, step and count 3) written with `CheckpointStore.save_jax_layout`
+    (flax msgpack by `core/msgpack.py`, which the CPU tests hold byte for
+    byte against flax), read back by `CheckpointStore.load` into a fresh
+    cuda state, every tensor, step and count held bit-equal; the read's
+    seconds, the host's peak RSS over it (mmap, pages dropped leaf by leaf)
+    and the device's peak against the fresh state's; then one train step
+    from the restored state (its launches the train phase's)."""
+    import tempfile
+
+    import torch
+
+    from difashion_tpu_torch.checkpoint import CheckpointStore
+    from difashion_tpu_torch.config import ModelConfig, TrainConfig
+    from difashion_tpu_torch.engine.train import build_train_step
+    from difashion_tpu_torch.models.difashion import create_difashion
+    from difashion_tpu_torch.nn import kernels
+
+    cfg, tc = ModelConfig.sd2_base(), TrainConfig()
+    dims = (cfg.mutual.latent_channels, cfg.mutual.latent_size)
+    model = create_difashion(cfg, seed=0, device="cuda")
+    _, init_state = build_train_step(model, tc)
+    state = init_state()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    with torch.no_grad():
+        for m, v, e in zip(state.opt_state.mu, state.opt_state.nu, state.ema.params):
+            m.copy_(torch.randn(m.shape, generator=gen, device="cuda") * 1e-3)
+            v.copy_(torch.rand(v.shape, generator=gen, device="cuda") * 1e-5)
+            e.add_(torch.randn(e.shape, generator=gen, device="cuda") * 1e-3)
+    state.step, state.opt_state.count, state.ema.step = 3, 3, 3
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(tmp)
+        t0 = time.perf_counter()
+        store.save_jax_layout(state, 3, tc, dims)
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = dir_bytes(store.ckpt_path(3))
+        # a fresh model and state on the card, as a resumed train command has
+        model2 = create_difashion(cfg, seed=1, device="cuda")
+        step_fn, init2 = build_train_step(model2, tc)
+        fresh = init2()
+        torch.cuda.synchronize()
+        fresh_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = rss_bytes()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            restored = store.load(fresh, mutual_dims=dims)
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+        device_peak = torch.cuda.max_memory_allocated()
+    equal = (restored.step == 3 and restored.opt_state.count == 3 and restored.ema.step == 3
+             and all(torch.equal(a, b) for g in ("params", "mu", "nu", "ema")
+                     for a, b in zip(state_tensors(restored)[g], state_tensors(state)[g])))
+    del state, model, init_state
+    torch.cuda.empty_cache()
+    batch, null_latent, null_text = train_inputs(model2, tc, seed=5)
+    b = batch()
+    kernels.reset_launches()
+    restored, metrics = step_fn(restored, b, null_latent, null_text,
+                                torch.Generator(device="cuda").manual_seed(3))
+    loss = float(metrics["loss"])
+    launches = dict(kernels.LAUNCHES)
+    want = all_counts(train_launches)
+    row = {"phase": "jax_checkpoint", "config": "sd2_base", "recipe": "TrainConfig()",
+           "layout": "flax msgpack (difashion_tpu/core/checkpoint.py)",
+           "checkpoint_bytes": ckpt_bytes, "write_seconds": write_s, "read_seconds": read_s,
+           "bit_equal": equal, "host_rss_before_read_bytes": rss0,
+           "host_peak_rss_over_read_bytes": rss.peak - rss0,
+           "device_fresh_state_bytes": fresh_bytes, "device_peak_over_read_bytes": device_peak,
+           "device_peak_minus_fresh_bytes": device_peak - fresh_bytes,
+           "resumed_step": restored.step, "resumed_loss": loss, "launches": launches}
+    emit(row)
+    del restored, model2, b
+    torch.cuda.empty_cache()
+    if not (equal and math.isfinite(loss) and launches == want and restored_ok(row)):
+        raise AssertionError(f"jax_checkpoint: {row}")
+
+
+def restored_ok(row):
+    """The read kept no second copy: the card's peak within 8 MB of the
+    fresh state's (the largest leaf is 118 MB, staged on the host), the
+    host's peak RSS over the read under 1 GB (an mmap whose pages are
+    dropped leaf by leaf, against 14 GB of files)."""
+    return (row["device_peak_minus_fresh_bytes"] <= 8 << 20
+            and row["host_peak_rss_over_read_bytes"] < 1 << 30 and row["resumed_step"] == 4)
+
+
+def rel_l2_np(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def phase_eval_towers():
+    """Every evaluation tower at full width (seeded random weights, fp32) on
+    the card, built by `eval/extractors.py::build_extractors`: ViT-H/14 on
+    200 images at 224, the text tower on the eval prompts of 50 categories,
+    both Inceptions on 64 images resized from 512 to 299, LPIPS on 16 pairs
+    at 512 and the compatibility net on 256 outfits. Per tower, on inputs
+    already on the card (one batch: the workload), its ms per batch by CUDA
+    events, items per second and the peak bytes over the call; and its
+    output at 2 rows against the same tower on the CPU in fp32 (relative L2
+    <= EVAL_REL_L2_TOL)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from difashion_tpu_torch.data.prompts import eval_prompt
+    from difashion_tpu_torch.eval.extractors import _resize_bilinear, build_extractors
+    from difashion_tpu_torch.eval.models.open_clip_vit import preprocess_clip_image
+
+    t0 = time.perf_counter()
+    X = build_extractors(None, batch_size=256, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated()
+    rng = np.random.RandomState(17)
+    clip_in = preprocess_clip_image(rng.rand(CLIP_IMAGES, 256, 256, 3).astype(np.float32),
+                                    224, "cuda")
+    prompts = [eval_prompt(f"category {c}") for c in range(50)]
+    ids = torch.as_tensor(np.asarray(X.clip_tokenizer(prompts)), dtype=torch.long).cuda()
+    x299 = _resize_bilinear(rng.rand(INCEPTION_IMAGES, 512, 512, 3).astype(np.float32), 299,
+                            "cuda") * 2 - 1
+    a, b = (torch.rand(LPIPS_PAIRS, 3, 512, 512, device="cuda") * 2 - 1 for _ in range(2))
+    outfits = torch.randn(COMPAT_OUTFITS, 4, 1024, device="cuda")
+    specs = {"clip_image": (X.clip, "encode_image", (clip_in,)),
+             "clip_text": (X.clip, "encode_text", (ids,)),
+             "fid_inception": (X.fid_inception, "forward", (x299,)),
+             "finetuned_inception": (X.inception, "forward", (x299,)),
+             "lpips": (X.lpips_net, "forward", (a, b)),
+             "compat": (X.compat, "forward", (outfits,))}
+    rows, cpu_towers = [], {}
+    for name, (tower, method, inputs) in specs.items():
+        fn = lambda: getattr(tower, method)(*inputs)
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = device_ms(fn, reps=5, warmup=1)
+            peak = torch.cuda.max_memory_allocated() - base
+            out = fn().float()
+            got = out[:2].cpu().numpy()
+            if id(tower) not in cpu_towers:
+                cpu_towers = {id(tower): copy.deepcopy(tower).cpu()}
+            cpu = cpu_towers[id(tower)]
+            want = getattr(cpu, method)(*(t[:2].cpu() for t in inputs)).float().numpy()
+        err = rel_l2_np(got, want)
+        row = {"phase": "eval_towers", "tower": name, "dtype": "float32 (TF32 off)",
+               "batch": len(inputs[0]), "input_shape": list(inputs[0].shape),
+               "ms_per_batch": ms, "items_per_second": len(inputs[0]) / ms * 1e3,
+               "peak_bytes_over_call": peak, "out_shape": list(out.shape),
+               "finite": bool(torch.isfinite(out).all()), "cpu_fp32_rel_l2_2_rows": err}
+        emit(row)
+        rows.append(row)
+        if not (row["finite"] and err <= EVAL_REL_L2_TOL):
+            raise AssertionError(f"eval_towers: {row}")
+    emit({"phase": "eval_towers", "build_seconds": build_s, "weights_bytes": weights,
+          "params": {k: sum(p.numel() for p in m.parameters()) for k, m in
+                     (("open_clip", X.clip), ("clip_image", X.clip.visual),
+                      ("fid_inception", X.fid_inception), ("finetuned_inception", X.inception),
+                      ("lpips", X.lpips_net), ("compat", X.compat))},
+          "random_towers": list(X.random_towers)})
+    del X, specs, cpu_towers, clip_in, ids, x299, a, b, outfits
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_extract_clip(img_dir, names, encode_per_batch):
+    """`cli/extract_features.main([... --stage all --device cuda])` at the
+    sd2_base widths (VAE stage at 512 px, batch 64; CLIP ViT-H/14 stage,
+    batch 200; seeded random weights) over the NATIVE_ITEMS synthetic items
+    and a history table: the files' shapes and finiteness, the VAE stage's
+    GroupNorm launches (the precompute phase's per batch; no skinny-N launch
+    in fp32), the
+    CLIP features bit for bit against a direct `Extractors.clip_image_embs`
+    over the same images, and seconds per 1000 items by stage, each split
+    into the host loader's and the rest (device and transfers), timed by
+    wrapping the loaders from outside."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from difashion_tpu_torch.cli import extract_features as xf
+    from difashion_tpu_torch.data import preprocessing
+    from difashion_tpu_torch.eval.extractors import build_extractors
+    from difashion_tpu_torch.nn import kernels
+
+    timers = {"vae_loader": 0.0, "clip_loader": 0.0}
+    real_make, real_load = xf.make_item_loader, preprocessing.load_catalog_image
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            timers[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    stage_s = {}
+    real_vae, real_clip = xf.run_vae_stage, xf.run_clip_stage
+
+    def stage(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_s[key] = time.perf_counter() - t0
+            return out
+        return run
+
+    kinds = []
+
+    def make(*a, **k):
+        loader = real_make(*a, **k)
+        kinds.append(loader.kind)
+        return timed("vae_loader", loader)
+
+    rng = np.random.RandomState(19)
+    n = len(names)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        cates = {c: f"category {c}" for c in range(1, 51)}
+        np.save(os.path.join(data, "id_cate_dict.npy"), np.array(cates, dtype=object))
+        for split in ("train", "test"):
+            hist = {u: {int(c): [int(i) for i in rng.randint(1, n, rng.randint(1, 6))]
+                        for c in rng.randint(1, 51, 4)} for u in range(1, 33)}
+            np.save(os.path.join(data, f"{split}_history.npy"), np.array(hist, dtype=object))
+        table = {"uids": [1], "oids": [1], "outfits": [[1, 2, 3, 4]], "category": [[1, 2, 3, 4]]}
+        np.save(os.path.join(data, "train.npy"), np.array(table, dtype=object))
+        paths = os.path.join(tmp, "paths.npy")
+        np.save(paths, np.array(names, dtype=object))
+        xf.make_item_loader = make
+        preprocessing.load_catalog_image = timed("clip_loader", real_load)
+        xf.run_vae_stage, xf.run_clip_stage = stage("vae", real_vae), stage("clip", real_clip)
+        kernels.reset_launches()
+        try:
+            xf.main(["--data_path", data, "--img_folder_path", img_dir, "--image_paths_npy",
+                     paths, "--stage", "all", "--device", "cuda"])
+        finally:
+            xf.make_item_loader, preprocessing.load_catalog_image = real_make, real_load
+            xf.run_vae_stage, xf.run_clip_stage = real_vae, real_clip
+        launches = dict(kernels.LAUNCHES)
+        proc = os.path.join(data, "processed")
+        feats = np.load(os.path.join(proc, "cnn_features_clip.npy"))
+        with np.load(os.path.join(proc, "all_item_moments.npz")) as z:
+            moments = {k: z[k] for k in z.files}
+        hists = {s: np.load(os.path.join(proc, f"{s}_history_clipembs.npy"),
+                            allow_pickle=True).item() for s in ("train", "test")}
+        # the same images through a direct call of a tower built the same way
+        X = build_extractors(None, batch_size=200, device="cuda")
+        load01 = lambda i: (real_load(os.path.join(img_dir, names[i]), size=512) + 1.0) / 2.0
+        direct = np.concatenate([X.clip_image_embs(np.stack([load01(i) for i in
+                                                             range(s, min(s + 200, n))]))
+                                 for s in range(0, n, 200)])
+        del X
+        torch.cuda.empty_cache()
+    batches = -(-n // 64)
+    # the precompute phase's GroupNorm launches per batch; no skinny-N one:
+    # the command runs the VAE in fp32 (as the JAX command does), and the
+    # Dense gate sends only 16-bit products to that kernel (`dense_route`)
+    want = all_counts({"group_norm_silu": batches * encode_per_batch})
+    hist_ok = all(v.shape == (1024,) and np.isfinite(v).all()
+                  for h in hists.values() for by in h.values() for v in by.values())
+    row = {"phase": "extract_clip", "config": "sd2_base VAE + ViT-H/14", "items": n,
+           "vae_batch": 64, "clip_batch": 200, "vae_item_loader": kinds,
+           "clip_item_loader": "PIL training transform at 512 (load_catalog_image)",
+           "features_shape": list(feats.shape), "moments_shape": list(moments["mean"].shape),
+           "finite": bool(np.isfinite(feats).all() and all(np.isfinite(v).all()
+                                                           for v in moments.values())),
+           "history_ok": hist_ok, "bit_equal_direct": bool(np.array_equal(feats, direct)),
+           "launches": launches, "want_launches": want}
+    for key in ("vae", "clip"):
+        total, loader = stage_s[key], timers[f"{key}_loader"]
+        row[f"{key}_seconds_per_1000_items"] = total / n * 1e3
+        row[f"{key}_loader_seconds_per_1000_items"] = loader / n * 1e3
+        row[f"{key}_rest_seconds_per_1000_items"] = (total - loader) / n * 1e3
+    emit(row)
+    if not (row["finite"] and hist_ok and row["bit_equal_direct"] and launches == want
+            and feats.shape == (n, 1024) and moments["mean"].shape == (n, 64, 64, 4)):
+        raise AssertionError(f"extract_clip: {row}")
+
+
 def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
     """A kernel's entry of the kernels line: its numbers (`<prefix>ms`,
     `<prefix>plain_ms`, `<prefix>bound_ms`, `library_ms`) summed over the
@@ -2715,6 +3149,8 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
 
 
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2745,8 +3181,14 @@ def main():
     phase_profile(model)
     serve_launches = phase_serve(model, mm_paths)
     precompute_launches = phase_precompute(model, mm_paths)
+    encode_gn = count_groupnorms(model.vae.encoder)
     del model
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as catalog:
+        names = write_synthetic_catalog(catalog, NATIVE_ITEMS)
+        phase_native_loader(catalog, names)
+        phase_eval_towers()
+        phase_extract_clip(catalog, names, encode_gn)
     # the training path, after the generation path: a backward leaves buffers
     # of its own (the autograd thread's cuBLAS workspace) that would count in
     # the main path's peak memory
@@ -2766,6 +3208,7 @@ def main():
     torch.cuda.empty_cache()
     live_state_bytes = phase_train_cli(train_launches, train_seconds)
     phase_info(live_state_bytes, train_peak)
+    phase_jax_checkpoint(train_launches)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                       f32_results, sd15_f32_results, bwd_f32_results, f32_launches,

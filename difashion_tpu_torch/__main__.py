@@ -2,7 +2,7 @@
 
 Commands ported so far:
   train              the fine-tuning loop (checkpoints, resume, metrics)
-  extract-features   catalog VAE moments (`--stage vae`)
+  extract-features   catalog VAE moments and CLIP features (`--stage vae|clip|all`)
   generate           FITB / GOR generation of a split into a JPEG tree
   serve              the HTTP generation service
   info               the visible devices and the training state's memory plan

@@ -4,7 +4,8 @@ Counterpart of `difashion_tpu/cli/generate.py`.
     python -m difashion_tpu_torch generate --data_path <dir> --ckpt_dir <ckpt> \
         [--task FITB|GOR] [--mode valid|test] [--tiny] [--device cuda|cpu]
 
-Restores a checkpoint of the port's store, copies its EMA weights into the
+Restores a checkpoint of the port's store, or one that the JAX package's
+`train` wrote (flax msgpack, `checkpoint.py`), copies its EMA weights into the
 model, runs the generation pipeline over the split and writes the JPEG tree
 and manifests under the reference's run name
 `<TASK>-checkpoint-<step>-cate<cs>-mutual<ms>-hist<hs>`. Runs on the card
@@ -46,7 +47,8 @@ def load_model_for_inference(cfg: Config, ckpt_dir: str, step: Optional[int] = N
     ema = EMAState(params=[torch.empty_like(p) for p in params], step=0) if use_ema else None
     template = TrainState(names=[n for n, _ in named], params=params, opt_state=None, ema=ema)
     store = CheckpointStore(ckpt_dir)
-    state = store.load(template, step)
+    state = store.load(template, step, mutual_dims=(
+        cfg.model.mutual.latent_channels, cfg.model.mutual.latent_size))
     if store.has_frozen():
         for tower, sd in store.load_frozen().items():
             load_tower(getattr(model, tower), sd, tower)

@@ -12,7 +12,9 @@ skinny-N kernels on the card; clipping, AdamW and EMA). The host loop only
 gathers the batch of `TrainLoader.batch_at(step)` and syncs with the device
 every `console_every` steps and at the last, to log. A checkpoint is saved
 every `checkpointing_steps` and at `max_train_steps`, keeping the newest
-`checkpoints_total_limit`; the frozen towers are saved once. Metrics go to
+`checkpoints_total_limit`; the frozen towers are saved once. A resume reads
+the port's checkpoints or the JAX package's (`checkpoint.py`); the next ones
+are the port's, in the same directory. Metrics go to
 `<output_dir>/metrics.jsonl` and the trackers of `--report_to`.
 
 One device: `dp_size` -1 or 0 trains on the one card (logged), and a
@@ -174,7 +176,8 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
         if store.latest_step() is not None:
             # copied into the fresh state's tensors in place: no second copy of
             # the parameters stays alive
-            state = store.load(state, want)
+            state = store.load(state, want, mutual_dims=(
+                cfg.model.mutual.latent_channels, cfg.model.mutual.latent_size))
             start_step = state.step
             log.info("resumed from checkpoint at step %d", start_step)
 

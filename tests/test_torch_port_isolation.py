@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of `difashion_tpu_torch`, and not
-`chip_smoke.py` or a script of `scripts/`, imports JAX, flax or the JAX
-package."""
+`chip_smoke.py` or a script of `scripts/`, imports JAX, flax, msgpack,
+ml_dtypes or the JAX package (the card's machine has none of them)."""
 import ast
 import os
 import pkgutil
@@ -12,6 +12,9 @@ import difashion_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "difashion_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "difashion_tpu")
+# packages the card's machine does not have: the port reads safetensors and
+# flax msgpack files itself
+PACKAGES = ("safetensors", "msgpack", "ml_dtypes")
 
 
 def _modules():
@@ -39,12 +42,15 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
                 "checkpoint", "data.datasets", "data.prompts", "data.tokenizer",
                 "data.preprocessing", "data.precompute", "cli.common", "cli.extract_features",
                 "cli.generate", "cli.serve", "cli.train", "cli.info", "core.logging",
-                "core.tensorboard", "core.importer", "engine.memory", "__main__"):
+                "core.tensorboard", "core.importer", "engine.memory", "__main__",
+                "core.msgpack", "core.flax_layout", "data.native", "eval", "eval.metrics",
+                "eval.extractors", "eval.drivers", "eval.models.open_clip_vit",
+                "eval.models.inception", "eval.models.lpips", "eval.models.compat"):
         assert f"difashion_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('safetensors',)!r}]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + PACKAGES!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -58,10 +64,9 @@ def test_port_sources_have_no_forbidden_imports():
     offenders = []
     sources = list(_sources())
     # every source of every subpackage is scanned, the core/ package's too
-    for sub in ("core", "cli", "engine", "data", "nn", "models", "diffusion"):
+    for sub in ("core", "cli", "engine", "data", "nn", "models", "diffusion", "eval"):
         assert any(os.sep + sub + os.sep in p for p in sources), sub
-    # the port reads safetensors files itself: the card's machine has no package
-    forbidden = FORBIDDEN + ("safetensors",)
+    forbidden = FORBIDDEN + PACKAGES
     for path in sources:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)

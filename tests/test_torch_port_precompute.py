@@ -227,7 +227,7 @@ def test_build_processed_cache_equals_jax_file_for_file(tmp_path):
 def test_extract_features_cli_writes_a_cache_the_jax_package_reads(tmp_path):
     from PIL import Image
 
-    n_items = 7
+    n_items = 10   # the histories of _dataset_dicts point at items up to 9
     rng = np.random.RandomState(7)
     data_dir, img_dir = tmp_path / "data", tmp_path / "imgs"
     _write_dataset(data_dir, _dataset_dicts(rng, n_items=n_items))
@@ -247,11 +247,13 @@ def test_extract_features_cli_writes_a_cache_the_jax_package_reads(tmp_path):
 
     cfg = tcfg.Config.preset_tiny().model
     loader = make_item_loader(str(img_dir), names, cfg.vae.sample_size)
-    # the item loader is the JAX package's PIL catalog pipeline
+    # the item loader is the JAX command's: the native catalog pipeline where
+    # the library builds (tests/test_torch_port_native.py), else PIL's
+    from difashion_tpu.cli.extract_features import make_item_loader as jax_make_item_loader
+
+    jax_loader = jax_make_item_loader(str(img_dir), names, 64)
     for i in (0, 1):
-        img = Image.open(img_dir / names[i])
-        want = np.asarray(jprep.prepare_catalog_image(img, 64), np.float32) / 255.0 * 2 - 1
-        np.testing.assert_array_equal(loader(i), want)
+        np.testing.assert_array_equal(loader(i), jax_loader(i))
     model = create_difashion(cfg, seed=0, device="cpu")
     want = tpre.encode_catalog(model, loader, n_items, batch_size=4, device="cpu")
     got = jpre.load_processed(str(data_dir), "all_item_moments")
@@ -265,9 +267,13 @@ def test_extract_features_cli_writes_a_cache_the_jax_package_reads(tmp_path):
     store = jdatasets.HistLatentStore.from_catalog({1: {2: [3, 4]}}, latents)
     np.testing.assert_allclose(store.lookup(1, 2), (latents[3] + latents[4]) / 2, rtol=1e-6)
 
-    for extra in (["--stage", "clip"], ["--stage", "all"]):
-        with pytest.raises(NotImplementedError):
-            port_main(args + extra)
+    # the CLIP stage writes the catalog's CLIP features and the history means
+    # (held against the JAX command in tests/test_torch_port_eval.py)
+    assert port_main(args + ["--stage", "clip"]) == 0
+    feats = np.load(data_dir / "processed" / "cnn_features_clip.npy")
+    assert feats.shape == (n_items, 16) and np.isfinite(feats).all()
+    hist = np.load(data_dir / "processed" / "test_history_clipembs.npy", allow_pickle=True).item()
+    np.testing.assert_allclose(hist[3][4], feats[[1, 2, 9]].mean(0), rtol=1e-6)
     # --pretrained_dir reads a diffusers directory (test_torch_port_importer.py)
     with pytest.raises(FileNotFoundError, match="no weights file"):
         port_main(args + ["--pretrained_dir", str(tmp_path / "no-such-dir")])
