@@ -7,9 +7,10 @@ It drives the port's paths at the sd2_base widths through the entry
 points a user calls, DiFashion's GOR generation, the generation service
 (DPM-Solver++ at 20 steps, the fast-serving recipe), its training step, the
 train command around it (checkpoints and a resume, and a checkpoint in the
-JAX package's layout), the catalog precompute (VAE encode at 512 px) and
-the catalog features command with its evaluation towers (ViT-H/14 at full
-width), and checks every hand-written
+JAX package's layout), the catalog precompute (VAE encode at 512 px), the
+catalog features command with its evaluation towers (ViT-H/14 at full
+width), the evaluate and parity commands over generated runs, and a short
+leg of the mid-scale learning proof, and checks every hand-written
 kernel of those paths against its plain PyTorch version. Phases, one JSON
 line each:
 
@@ -99,6 +100,17 @@ line each:
      (the precompute's per batch), the CLIP features bit for bit against a
      direct `Extractors.clip_image_embs`, the history means, and seconds per
      1000 items per stage split into the loader's and the rest;
+  7f. evaluate_parity: the parity command (generate -> evaluate with the
+     grounding cascade -> the 2 % table) at the sd2_base widths with the
+     full-size towers at random weights, in FITB (16 UNet rows) and GOR (32),
+     over a test split on those items and a checkpoint of the seeded model;
+     evaluate again over the cached runs; parity against the run's own
+     results, then against its FID x 1.05 (refused): every metric of the
+     four cascades finite, no tower called when cached, the cascade's CLIP
+     scores against the metric on direct tower features, each UNet forward's
+     launches (the main path's at 16 rows), the memory held when evaluate
+     starts; generate seconds and evaluate seconds per image split into the
+     loader, each tower and the rest, and the peak;
   8. kernel_bwd: the dQ and dK/dV kernels against the plain backward at the
      training UNet's attention shapes (batch 8 = 2 outfits x 4 items) and the
      ragged ones, both held against the plain backward in fp32, with their
@@ -152,6 +164,11 @@ line each:
      layout (flax msgpack), read into a fresh cuda state bit for bit, the
      read's seconds, host peak RSS and device peak against the fresh
      state's, then one train step from it.
+ 17. learning_proof: `scripts/learning_proof_cuda.py --steps 100` at the mid
+     config (two legs of 50 with a resume, four generation runs, the report):
+     the legs, checkpoints, runs and report, the same launches every train
+     step (flash forward, dQ, dK/dV, GroupNorm) and every sampler forward,
+     finite losses; seconds per step (the gates are the 6000-step run's).
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
@@ -927,8 +944,8 @@ MM_TIMED = ("sampler_unet", "serve_unet", "train_unet", "train_unet_dx", "vae_de
             "serve_decode", "vae_encode", "encode_ragged")
 
 
-def dense_sites(cfg):
-    """{path: [(M, K, N, bias) of each gated Dense call]} for DENSE_PATHS,
+def dense_sites(cfg, paths=DENSE_PATHS):
+    """{path: [(M, K, N, bias) of each gated Dense call]} for `paths`,
     from forwards of the sd2_base towers on the meta device (shapes only) and
     the bf16 gate of `nn/kernels/skinny_matmul.py`; "<path>_dx" for the
     train UNet's backward, whose dx = g . w is the product (M, N, K) with the
@@ -954,7 +971,7 @@ def dense_sites(cfg):
     u, v = cfg.unet, cfg.vae
     meta = lambda *shape: torch.empty(*shape, device="meta")
     with torch.no_grad(), kernels.plain_versions():
-        for path, what, b in DENSE_PATHS:
+        for path, what, b in paths:
             calls[path] = []
             if what == "unet":
                 model.unet(meta(b, u.in_channels, u.sample_size, u.sample_size),
@@ -966,7 +983,8 @@ def dense_sites(cfg):
                 model.vae.encode(meta(b, v.in_channels, v.sample_size, v.sample_size))
     for h in hooks:
         h.remove()
-    calls["train_unet_dx"] = [(m, n, k, False) for m, k, n, _ in calls["train_unet"]]
+    if "train_unet" in calls:
+        calls["train_unet_dx"] = [(m, n, k, False) for m, k, n, _ in calls["train_unet"]]
     return calls
 
 
@@ -2709,8 +2727,10 @@ def phase_jax_checkpoint(train_launches):
     (flax msgpack by `core/msgpack.py`, which the CPU tests hold byte for
     byte against flax), read back by `CheckpointStore.load` into a fresh
     cuda state, every tensor, step and count held bit-equal; the read's
-    seconds, the host's peak RSS over it (mmap, pages dropped leaf by leaf)
-    and the device's peak against the fresh state's; then one train step
+    seconds, the host's peak RSS over it (each file's structure parsed
+    from reads of its headers, each leaf mapped on its own and unmapped
+    once copied) and the device's peak against the fresh state's; then one
+    train step
     from the restored state (its launches the train phase's)."""
     import tempfile
 
@@ -2785,8 +2805,9 @@ def phase_jax_checkpoint(train_launches):
 def restored_ok(row):
     """The read kept no second copy: the card's peak within 8 MB of the
     fresh state's (the largest leaf is 118 MB, staged on the host), the
-    host's peak RSS over the read under 1 GB (an mmap whose pages are
-    dropped leaf by leaf, against 14 GB of files)."""
+    host's peak RSS over the read under 1 GB (one leaf's map at a time,
+    against 14 GB of files: a map of a whole file counts in full on the
+    card's host once its pages are cached)."""
     return (row["device_peak_minus_fresh_bytes"] <= 8 << 20
             and row["host_peak_rss_over_read_bytes"] < 1 << 30 and row["resumed_step"] == 4)
 
@@ -2884,7 +2905,7 @@ def phase_extract_clip(img_dir, names, encode_per_batch):
     CLIP features bit for bit against a direct `Extractors.clip_image_embs`
     over the same images, and seconds per 1000 items by stage, each split
     into the host loader's and the rest (device and transfers), timed by
-    wrapping the loaders from outside."""
+    wrapping the loaders from outside. Returns the catalog features."""
     import tempfile
 
     import numpy as np
@@ -2990,6 +3011,478 @@ def phase_extract_clip(img_dir, names, encode_per_batch):
     if not (row["finite"] and hist_ok and row["bit_equal_direct"] and launches == want
             and feats.shape == (n, 1024) and moments["mean"].shape == (n, 64, 64, 4)):
         raise AssertionError(f"extract_clip: {row}")
+    return feats
+
+
+# ---- slice 13: the evaluation cascades, evaluate / parity, the learning proof ------
+
+PARITY_OUTFITS = 8          # the FITB test table; GOR takes the first batch of 2
+PARITY_CATES = {1: "pants", 2: "shoes", 3: "bag", 4: "t-shirt", 5: "earrings"}
+PARITY_FITB_BATCH, PARITY_GOR_BATCH = 4, 2   # UNet rows: 16 (the main path's) and 32
+# the cascade's CLIP scores against the metric on features taken directly from
+# the same towers and images: the same fp32 products at the same batch
+PARITY_SCORE_RTOL = 1e-6
+CASCADE_METRICS = {
+    ("FITB", False): ("fid", "is", "clip_score", "grd_clip_score", "clip_retrieval_acc",
+                      "clip_image_score", "lpips", "personal_sim", "compatibility",
+                      "grd_compatibility"),
+    ("GOR", False): ("fid", "is", "clip_score", "clip_image_score", "lpips", "personal_sim",
+                     "compatibility", "grd_compatibility"),
+    ("FITB", True): ("retrieval_acc", "clip_score", "clip_image_score", "lpips",
+                     "personal_sim", "compatibility"),
+    ("GOR", True): ("recall@10", "recall@20", "recall@50", "recall@100", "clip_score",
+                    "personal_sim", "compatibility"),
+}
+TOWER_CALLS = ("fid_features", "inception_probs", "clip_image_embs", "clip_text_embs",
+               "lpips", "compat_scores")
+
+
+def write_parity_dataset(root, n_items, feats, model_cfg):
+    """A test split over the synthetic catalog (item i of category 1 + i % 5,
+    item 0 unused): a FITB table of PARITY_OUTFITS outfits of 4 categories
+    with one blank each, its ground truth, retrieval candidates (the blank's
+    item and 4 of its category), the category pools, histories of 3 items per
+    (user, category) and their mean CLIP features from `feats` (the
+    extract_clip phase's catalog features), and the catalog's VAE moments
+    (seeded) at `model_cfg`'s latent shape. Returns {flag: path} for the
+    commands."""
+    import numpy as np
+
+    from difashion_tpu_torch.data.precompute import save_processed
+    from difashion_tpu_torch.eval.drivers import process_history_clip_embs
+
+    rng = np.random.RandomState(23)
+    data = os.path.join(root, "data")
+    os.makedirs(os.path.join(data, "map"))
+    pools = {c: [i for i in range(1, n_items) if 1 + i % 5 == c] for c in PARITY_CATES}
+    uids = [1 + i % 4 for i in range(PARITY_OUTFITS)]
+    oids = list(range(500, 500 + PARITY_OUTFITS))
+    cates = [[1 + (i + j) % 5 for j in range(4)] for i in range(PARITY_OUTFITS)]
+    outfits = [[int(rng.choice(pools[c])) for c in cs] for cs in cates]
+    fitb = [[0 if j == i % 4 else o[j] for j in range(4)] for i, o in enumerate(outfits)]
+    cands = {}
+    for u, oid, o, cs, i in zip(uids, oids, outfits, cates, range(PARITY_OUTFITS)):
+        pool = [x for x in pools[cs[i % 4]] if x != o[i % 4]]
+        cands.setdefault(u, {})[oid] = [o[i % 4]] + [int(x) for x in rng.choice(pool, 4, False)]
+    history = {u: {c: [int(x) for x in rng.choice(pools[c], 3, False)] for c in PARITY_CATES}
+               for u in range(1, 5)}
+    save = lambda name, obj: np.save(os.path.join(data, name), np.array(obj, dtype=object))
+    save("fitb_test.npy", {"uids": uids, "oids": oids, "outfits": fitb, "category": cates})
+    save("test_grd.npy", {oid: {"outfits": o, "category": cs}
+                          for oid, o, cs in zip(oids, outfits, cates)})
+    save("fitb_test_retrieval_candidates.npy", cands)
+    save(os.path.join("map", "cate_iid_dict.npy"), pools)
+    save("test_history.npy", history)
+    save("id_cate_dict.npy", PARITY_CATES)
+    shape = (n_items, model_cfg.unet.sample_size, model_cfg.unet.sample_size,
+             model_cfg.vae.latent_channels)
+    save_processed(data, "all_item_moments", mean=rng.randn(*shape).astype(np.float32),
+                   logvar=np.full(shape, -8.0, np.float32))
+    paths = {"--data_path": data, "--cnn_features_npy": os.path.join(root, "cnn.npy"),
+             "--hist_clipembs_npy": os.path.join(root, "hist.npy")}
+    np.save(paths["--cnn_features_npy"], feats)
+    np.save(paths["--hist_clipembs_npy"],
+            np.array(process_history_clip_embs(history, feats), dtype=object))
+    return paths
+
+
+class ParityProbe:
+    """Instruments the parity and evaluate commands from outside: each UNet
+    forward's launches and batch (`UNet2DCondition.forward` wrapped), the
+    seconds of every generate and evaluate call and the device memory held
+    when an evaluate starts, the towers each evaluate builds (their method
+    calls counted and timed on the instance), and the image loader's calls and
+    seconds (`drivers.load_image01`). `restore()` puts the originals back."""
+
+    def __init__(self):
+        from difashion_tpu_torch.cli import evaluate, generate
+        from difashion_tpu_torch.eval import drivers
+        from difashion_tpu_torch.models.unet import UNet2DCondition
+        from difashion_tpu_torch.nn import kernels
+
+        import torch
+
+        self.forwards, self.calls = [], []
+        self.towers = {k: {"calls": 0, "items": 0, "seconds": 0.0} for k in TOWER_CALLS}
+        self.loader = {"calls": 0, "seconds": 0.0}
+        self.builds = 0
+        self._orig = [(UNet2DCondition, "forward", UNet2DCondition.forward),
+                      (generate, "main", generate.main), (evaluate, "main", evaluate.main),
+                      (evaluate, "build_extractors", evaluate.build_extractors),
+                      (drivers, "load_image01", drivers.load_image01)]
+        forward, gen_main, eval_main, build, load = (o[2] for o in self._orig)
+        probe = self
+
+        def unet_forward(mod, sample, *args, **kwargs):
+            before = dict(kernels.LAUNCHES)
+            out = forward(mod, sample, *args, **kwargs)
+            probe.forwards.append({"rows": sample.shape[0], "launches": {
+                k: kernels.LAUNCHES[k] - before[k] for k in kernels.COUNTERS}})
+            return out
+
+        def command(kind, fn):
+            def run(argv):
+                torch.cuda.synchronize()
+                rec = {"command": kind, "argv": list(argv),
+                       "allocated_at_entry_bytes": torch.cuda.memory_allocated()}
+                t0 = time.perf_counter()
+                try:
+                    return fn(argv)
+                finally:
+                    torch.cuda.synchronize()
+                    rec["seconds"] = time.perf_counter() - t0
+                    probe.calls.append(rec)
+            return run
+
+        def timed_method(name, fn):
+            def run(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                rec = probe.towers[name]
+                rec["calls"] += 1
+                rec["items"] += len(args[0])
+                rec["seconds"] += time.perf_counter() - t0
+                return out
+            return run
+
+        def build_extractors(*args, **kwargs):
+            X = build(*args, **kwargs)
+            for name in TOWER_CALLS:
+                setattr(X, name, timed_method(name, getattr(X, name)))
+            probe.builds += 1
+            return X
+
+        def load_image01(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = load(*args, **kwargs)
+            probe.loader["calls"] += 1
+            probe.loader["seconds"] += time.perf_counter() - t0
+            return out
+
+        UNet2DCondition.forward = unet_forward
+        generate.main = command("generate", gen_main)
+        evaluate.main = command("evaluate", eval_main)
+        evaluate.build_extractors = build_extractors
+        drivers.load_image01 = load_image01
+
+    def snapshot(self):
+        """The towers' and the loader's totals so far."""
+        return ({k: dict(v) for k, v in self.towers.items()}, dict(self.loader))
+
+    def restore(self):
+        for obj, name, fn in self._orig:
+            setattr(obj, name, fn)
+
+
+def unet_kernel_calls(cfg, rows):
+    """Launches of one sampler UNet forward at `rows` rows in bf16: every
+    attention on the flash forward, every GroupNorm on its kernel, and the
+    Dense products that the skinny-N gate routes (`dense_sites`)."""
+    import torch
+
+    from difashion_tpu_torch.models.difashion import DiFashion
+
+    with torch.device("meta"):
+        unet = DiFashion(cfg).unet
+    return all_counts({
+        "flash_attention_fwd": sum(c for *_, c in main_path_attention_sites(cfg, rows)),
+        "group_norm_silu": count_groupnorms(unet),
+        "skinny_matmul": len(dense_sites(cfg, (("unet", "unet", rows),))["unet"])})
+
+
+def write_parity_checkpoint(cfg, ckpt):
+    """The cheapest checkpoint of the port's store that `generate` restores:
+    the seeded bf16 sd2_base model's trainable weights (1.7 GB), an empty
+    optimizer state, no EMA (the restore seeds it from the weights) and no
+    frozen towers (the seeded VAE and text encoder are the model's own)."""
+    import torch
+
+    from difashion_tpu_torch.checkpoint import CheckpointStore
+    from difashion_tpu_torch.engine.train import AdamState, TrainState
+    from difashion_tpu_torch.models.difashion import create_difashion
+
+    model = create_difashion(cfg.model, seed=cfg.train.seed, device="cuda",
+                             dtype=torch.bfloat16)
+    named = model.trainable_parameters()
+    state = TrainState(names=[n for n, _ in named], params=[p for _, p in named],
+                       opt_state=AdamState(0, [], []), ema=None, step=0)
+    CheckpointStore(ckpt).save(state, 0)
+    del model, state, named
+    torch.cuda.empty_cache()
+
+
+def phase_evaluate_parity(img_dir, names, feats, main_fwd):
+    """The evaluate and parity commands at the sd2_base widths with the
+    full-size towers (ViT-H/14, both InceptionV3s at 299, LPIPS-VGG16 at
+    512, compat; seeded random weights), through the dispatcher
+    (`__main__.main`, in this process, so that the probe can count), on a
+    test split over the synthetic 512 px catalog (`write_parity_dataset`,
+    with the extract_clip phase's catalog features `feats`) and a checkpoint
+    of the seeded sd2_base model (`write_parity_checkpoint`):
+
+      1. `parity --grounding --allow_random_weights --device cuda` for FITB
+         (8 outfits, 2 batches of 4: 16 UNet rows, the main path's batch),
+         then for GOR (`--max_batches 1`: 2 outfits, 32 rows), 50-step PNDM
+         with the recipe's CFG: generate, the cascade, the grounding cascade;
+      2. `evaluate` and `evaluate --grounding` again over both runs;
+      3. `parity` with the FITB run's own results as `--reference_results`,
+         then with its FID scaled by 1.05.
+
+    Checks: every metric of the four cascades present and finite; the
+    evaluates of step 2 build their towers and call none of them, nor the
+    image loader; the FITB cascade's clip_score and clip_image_score equal the
+    metric functions on features taken directly from `Extractors` (the same
+    seeded towers, rebuilt) on the same images, within PARITY_SCORE_RTOL;
+    step 3 passes at 0 % and then exits non-zero; every UNet forward of the
+    generate legs launches what `unet_kernel_calls` gives for its rows, and
+    at 16 rows the main path's per forward (`main_fwd`); the device holds no
+    more than 256 MB over the phase's start when the first evaluate of a leg
+    starts (the UNet freed). Prints per leg the generate seconds, the
+    evaluate seconds per generated image split into the image loader, each
+    tower and the rest (the cascades' metric math, the grids, I/O), the
+    phase's peak device memory and the host's resident set before and after.
+    Returns the launches of the generate legs' UNet forwards."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from difashion_tpu_torch.__main__ import main as dispatch
+    from difashion_tpu_torch.config import Config
+    from difashion_tpu_torch.data.prompts import eval_prompt
+    from difashion_tpu_torch.eval import drivers
+    from difashion_tpu_torch.eval.extractors import build_extractors
+    from difashion_tpu_torch.eval.metrics import clip_image_score, clip_score
+
+    cfg = Config.preset_eta01()
+    cfg = dataclasses.replace(cfg, generation=dataclasses.replace(
+        cfg.generation, fitb_batch_size=PARITY_FITB_BATCH, gor_batch_size=PARITY_GOR_BATCH))
+    want_fwd = {"FITB": unet_kernel_calls(cfg.model, 4 * PARITY_FITB_BATCH),
+                "GOR": unet_kernel_calls(cfg.model, 4 * 4 * PARITY_GOR_BATCH)}
+    root = tempfile.mkdtemp(prefix="difashion_parity_")
+    rss0 = rss_bytes()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    probe = None
+    try:
+        flags = write_parity_dataset(root, len(names), feats, cfg.model)
+        paths_npy = os.path.join(root, "paths.npy")
+        np.save(paths_npy, np.array(names, dtype=object))
+        cfg_path, ckpt, out = (os.path.join(root, n) for n in ("config.json", "ckpt", "out"))
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        t0 = time.perf_counter()
+        write_parity_checkpoint(cfg, ckpt)
+        ckpt_s = time.perf_counter() - t0
+        common = [*(x for kv in flags.items() for x in kv), "--img_folder_path", img_dir,
+                  "--image_paths_npy", paths_npy, "--weights_dir", os.path.join(root, "none"),
+                  "--mode", "test", "--device", "cuda", "--allow_random_weights"]
+        parity = common + ["--ckpt_dir", ckpt, "--out_dir", out, "--config", cfg_path]
+
+        # 1) parity for FITB and GOR, with the grounding cascades
+        probe = ParityProbe()
+        legs = {}
+        for task, extra in (("FITB", []), ("GOR", ["--max_batches", "1"])):
+            first_call, first_fwd = len(probe.calls), len(probe.forwards)
+            towers0, loader0 = probe.snapshot()
+            if dispatch(["parity", *parity, "--task", task, "--grounding", *extra]) != 0:
+                raise AssertionError(f"evaluate_parity: parity {task} returned non-zero")
+            towers1, loader1 = probe.snapshot()
+            legs[task] = {"calls": probe.calls[first_call:],
+                          "forwards": probe.forwards[first_fwd:],
+                          "towers": {k: {f: towers1[k][f] - towers0[k][f] for f in v}
+                                     for k, v in towers0.items()},
+                          "loader": {f: loader1[f] - loader0[f] for f in loader0}}
+        results = np.load(os.path.join(out, "eval_results.npy"), allow_pickle=True).item()
+        grounding = np.load(os.path.join(out, "eval_results_grounding.npy"),
+                            allow_pickle=True).item()
+        runs = {task: next(r for r in results if r.startswith(task + "-")) for task in legs}
+        manifests = {task: np.load(os.path.join(out, run + ".npy"), allow_pickle=True).item()
+                     for task, run in runs.items()}
+
+        # 2) evaluate again: every metric is in the files already
+        towers0, loader0 = probe.snapshot()
+        builds0 = probe.builds
+        for task in legs:
+            for g in ([], ["--grounding"]):
+                dispatch(["evaluate", *common, "--gen_dir", out, "--task", task, *g])
+        towers1, loader1 = probe.snapshot()
+        cached = {"builds": probe.builds - builds0,
+                  "tower_calls": sum(towers1[k]["calls"] - towers0[k]["calls"] for k in towers0),
+                  "loader_calls": loader1["calls"] - loader0["calls"]}
+        probe.restore()
+        probe = None
+
+        # the FITB cascade's CLIP scores against features taken directly
+        X = build_extractors(None, batch_size=32, device="cuda")
+        grd = np.load(os.path.join(flags["--data_path"], "test_grd.npy"),
+                      allow_pickle=True).item()
+        _, oids, cates, _, gen_paths = drivers._flatten_fitb_manifest(manifests["FITB"])
+        gen = np.stack([drivers.load_image01(p, 512) for p in gen_paths])
+        real = np.stack([drivers.load_image01(os.path.join(img_dir, names[i]), 512)
+                         for i in drivers._grd_item_iids(grd, oids, cates)])
+        gen_emb, grd_emb = X.clip_image_embs(gen), X.clip_image_embs(real)
+        txt = X.clip_text_embs([eval_prompt(PARITY_CATES[c]) for c in cates])
+        direct = {"clip_score": clip_score(gen_emb, txt),
+                  "clip_image_score": clip_image_score(gen_emb, grd_emb)}
+        del X, gen, real
+        torch.cuda.empty_cache()
+
+        # 3) the run's own numbers as the reference, then its FID 5 % off
+        ref_ok, ref_bad = (os.path.join(root, n) for n in ("ref_ok.npy", "ref_bad.json"))
+        fitb_res = results[runs["FITB"]]
+        np.save(ref_ok, np.array({runs["FITB"]: fitb_res}, dtype=object))
+        with open(ref_bad, "w") as f:
+            json.dump({"fid": fitb_res["fid"] * 1.05, "lpips": fitb_res["lpips"]}, f)
+        ref_pass = dispatch(["parity", *parity, "--task", "FITB", "--reference_results", ref_ok])
+        with open(os.path.join(out, "parity_table.json")) as f:
+            table_ok = json.load(f)
+        refused = None
+        try:
+            dispatch(["parity", *parity, "--task", "FITB", "--reference_results", ref_bad])
+        except SystemExit as e:   # the refusal this step is for
+            refused = str(e)
+        with open(os.path.join(out, "parity_table.json")) as f:
+            table_bad = json.load(f)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        if probe is not None:
+            probe.restore()
+        shutil.rmtree(root, ignore_errors=True)
+
+    def finite(v):
+        return all(map(math.isfinite, v.values())) if isinstance(v, dict) else math.isfinite(v)
+
+    missing = {}
+    for (task, g), metrics in CASCADE_METRICS.items():
+        res = (grounding if g else results)[runs[task]]
+        missing[task + (" grounding" if g else "")] = [
+            m for m in metrics if m not in res or not finite(res[m])]
+    row = {"phase": "evaluate_parity", "config": "sd2_base + full-size eval towers (fp32)",
+           "recipe": "Config.preset_eta01(): 50-step PNDM, CFG 12 / 4 / 5",
+           "checkpoint_write_seconds": ckpt_s, "peak_memory_bytes": peak, "cached": cached,
+           "host_rss_start_bytes": rss0, "host_rss_end_bytes": rss_bytes(),
+           "direct_clip": direct, "results": {t: results[r] for t, r in runs.items()},
+           "grounding": {t: grounding[r] for t, r in runs.items()},
+           "reference_pass_rc": ref_pass, "reference_pass_ok": table_ok["ok"],
+           "fid_delta_pct": {r["metric"]: r["delta_pct"] for r in table_ok["rows"]}.get("fid"),
+           "refused": refused, "refused_table_ok": table_bad["ok"],
+           "main_path_per_forward": main_fwd}
+    problems = [f"{k}: missing or non-finite {v}" for k, v in missing.items() if v]
+    for task, leg in legs.items():
+        gen_calls = [c for c in leg["calls"] if c["command"] == "generate"]
+        eval_calls = [c for c in leg["calls"] if c["command"] == "evaluate"]
+        n = sum(len(rec["image_paths"]) for by in manifests[task].values()
+                for rec in by.values())
+        eval_s = sum(c["seconds"] for c in eval_calls)
+        tower_s = sum(v["seconds"] for v in leg["towers"].values())
+        bad_fwd = [f for f in leg["forwards"] if f["launches"] != want_fwd[task]]
+        row[task] = {
+            "images": n, "generate_seconds": sum(c["seconds"] for c in gen_calls),
+            "unet_forwards": len(leg["forwards"]),
+            "unet_rows": sorted({f["rows"] for f in leg["forwards"]}),
+            "launches_per_forward": want_fwd[task], "forwards_off_expected": len(bad_fwd),
+            "allocated_at_first_evaluate_bytes": eval_calls[0]["allocated_at_entry_bytes"] - base,
+            "evaluate_seconds": eval_s, "evaluate_seconds_per_image": eval_s / n,
+            "loader_seconds_per_image": leg["loader"]["seconds"] / n,
+            "tower_seconds_per_image": {k: v["seconds"] / n for k, v in leg["towers"].items()},
+            "rest_seconds_per_image": (eval_s - leg["loader"]["seconds"] - tower_s) / n,
+            "loader": leg["loader"], "towers": leg["towers"]}
+        if bad_fwd or not leg["forwards"]:
+            problems.append(f"{task}: {len(bad_fwd)} of {len(leg['forwards'])} UNet forwards "
+                            f"off {want_fwd[task]}: {bad_fwd[:2]}")
+        if row[task]["allocated_at_first_evaluate_bytes"] > 256 << 20:
+            problems.append(f"{task}: {row[task]['allocated_at_first_evaluate_bytes']} bytes "
+                            "held when evaluate started")
+    if want_fwd["FITB"] != main_fwd:
+        problems.append(f"FITB per forward {want_fwd['FITB']} != the main path's {main_fwd}")
+    if cached != {"builds": 4, "tower_calls": 0, "loader_calls": 0}:
+        problems.append(f"cached evaluates: {cached}")
+    for k, v in direct.items():
+        if abs(v - results[runs["FITB"]][k]) > PARITY_SCORE_RTOL * abs(v):
+            problems.append(f"{k}: cascade {results[runs['FITB']][k]} vs direct {v}")
+    if not (ref_pass == 0 and table_ok["ok"] and row["fid_delta_pct"] == 0.0):
+        problems.append(f"parity against its own results: rc {ref_pass}, table {table_ok}")
+    if refused is None or "parity FAILED" not in refused or table_bad["ok"]:
+        problems.append(f"parity with FID x 1.05 was not refused: {refused}")
+    emit(row)
+    if problems:
+        raise AssertionError("evaluate_parity: " + "; ".join(problems))
+    return {k: sum(f["launches"][k] for leg in legs.values() for f in leg["forwards"])
+            for k in want_fwd["FITB"]}
+
+
+LEARNING_PROOF_STEPS = 100   # two legs of 50: the plumbing, not the gates
+
+
+def phase_learning_proof():
+    """`scripts/learning_proof_cuda.py --steps 100` (its `main`, in this
+    process) at the mid config on the card: train 50 steps, resume from
+    checkpoint-50 to 100, generate FITB and GOR with the EMA and the raw
+    weights (50-step PNDM, 4-branch CFG), the reconstruction gates, the
+    report (into a temporary file). Checks the plumbing, not the gates:
+    both legs ran and the second started at step 50; checkpoints 50 and 100;
+    the four runs wrote their manifests and JPEGs; the report was written;
+    every train step launched the same kernels, the flash forward, dQ,
+    dK/dV and GroupNorm among them; every sampler UNet forward of a task the
+    same, the flash forward and GroupNorm among them; the losses finite.
+    Prints seconds per train step and the report's launches. Returns the
+    launches of one train step and one sampler forward of each task."""
+    import importlib.util
+    import tempfile as tf
+
+    spec = importlib.util.spec_from_file_location(
+        "learning_proof_cuda", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                            "scripts", "learning_proof_cuda.py"))
+    lp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lp)
+    with tf.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "report.json")
+        rc = lp.main(["--steps", str(LEARNING_PROOF_STEPS), "--device", "cuda",
+                      "--report", path])
+        with open(path) as f:
+            r = json.load(f)
+    half = LEARNING_PROOF_STEPS // 2
+    launches = r["preset"]["launches"]
+    train, fwd = launches["per_train_step"], launches["per_sampler_unet_forward"]
+    row = {"phase": "learning_proof", "config": "mid (tools/learning_proof_tpu.py)",
+           "steps": LEARNING_PROOF_STEPS, "rc": rc, "legs": r["legs"],
+           "checkpoints": r["checkpoints"], "runs": r["runs"], "launches": launches,
+           "train_wall_s": r["train_wall_s"], "generate_wall_s": r["generate_wall_s"],
+           "train_seconds_per_step": r["train_wall_s"] / LEARNING_PROOF_STEPS,
+           "losses": r["losses"], "loss_first": r["loss_first"], "loss_last": r["loss_last"],
+           "gates": {t: {v: r[t]["variants"][v]["n_correct"] for v in ("ema", "raw")}
+                     for t in ("FITB", "GOR")}, "all_gates_passed": r["all_gates_passed"],
+           "preset": {k: v for k, v in r["preset"].items() if k != "launches"}}
+    emit(row)
+    problems = []
+    if r["legs"] != [{"first_step": 0, "steps": half, "end_step": half},
+                     {"first_step": half, "steps": half, "end_step": 2 * half}]:
+        problems.append(f"legs {r['legs']}")
+    if r["checkpoints"] != [half, 2 * half]:
+        problems.append(f"checkpoints {r['checkpoints']}")
+    if set(r["runs"]) != {"FITB_ema", "FITB_raw", "GOR_ema", "GOR_raw"} or not all(
+            v["jpegs_exist"] and v["images"] == (4 if k.startswith("FITB") else 16)
+            for k, v in r["runs"].items()):
+        problems.append(f"runs {r['runs']}")
+    if len(train) != 1 or not all(train[0][k] > 0 for k in (
+            "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+            "group_norm_silu")) or launches["train_steps"] != LEARNING_PROOF_STEPS:
+        problems.append(f"train step launches {train} over {launches['train_steps']} steps")
+    for task, per in fwd.items():
+        if len(per) != 1 or not (per[0]["flash_attention_fwd"] > 0
+                                 and per[0]["group_norm_silu"] > 0):
+            problems.append(f"{task} sampler forward launches {per}")
+    if not r["losses_finite"] or not r["losses"]:
+        problems.append(f"losses {r['losses']}")
+    if rc != (0 if r["all_gates_passed"] else 1):
+        problems.append(f"exit code {rc} for all_gates_passed={r['all_gates_passed']}")
+    if problems:
+        raise AssertionError("learning_proof: " + "; ".join(problems))
+    return {"train_step": train[0], **{f"{t}_sampler_forward": per[0] for t, per in fwd.items()}}
 
 
 def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
@@ -3069,7 +3562,7 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                  precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                  f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
-                 bwd_sd15_results, train_fp32):
+                 bwd_sd15_results, train_fp32, parity_launches, proof_launches):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
@@ -3079,7 +3572,9 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
     beside, the forward's also per sd15 UNet forward in fp32 (d = 40 and
     80), the backward's with the full-width fp32 step's numbers
     (`phase_train_fp32`); the GroupNorm kernel's as `gn_entry` says, the
-    skinny-N kernel's as `mm_entry` says."""
+    skinny-N kernel's as `mm_entry` says. Each entry also carries its
+    launches in the parity phase's generate legs (their UNet forwards) and in
+    one train step and one sampler forward of the learning proof."""
     fwd_rows = [dict(r, ms=r["kernel_ms"]) for r in results]
     sd15_rows = [dict(r, ms=r["kernel_ms"]) for r in sd15_results]
     f32_rows = [dict(r, ms=r["kernel_ms"]) for r in f32_results]
@@ -3104,7 +3599,7 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
         return {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "share_of_bound",
                                   "per", "shapes")}
 
-    return {"kernels": [
+    entries = [
         kernel_entry("flash_attention_fwd", fwd_rows, "calls_per_unet_forward", "",
                      "one sampler UNet forward", launches["flash_attention_fwd"],
                      replaces=pallas + "50",
@@ -3145,7 +3640,11 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
         gn_entry(gn_results, launches, train_launches, precompute_launches),
         mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
                  serve_launches),
-    ]}
+    ]
+    for e in entries:
+        e["parity_generate_unet_launches"] = parity_launches[e["name"]]
+        e["learning_proof_launches"] = {k: v[e["name"]] for k, v in proof_launches.items()}
+    return {"kernels": entries}
 
 
 def main():
@@ -3178,6 +3677,13 @@ def main():
     model = create_difashion(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     phase_unet(model, mm_paths)
     launches = phase_main_path(model, mm_paths)
+    # one sampler UNet forward's launches on the main path (batch 16)
+    main_fwd = all_counts({
+        "flash_attention_fwd": launches["flash_attention_fwd"] // (STEPS + 1),
+        "group_norm_silu": (launches["group_norm_silu"]
+                            - count_groupnorms(model.vae.decoder)) // (STEPS + 1),
+        "skinny_matmul": (launches["skinny_matmul"]
+                          - len(mm_paths["vae_decode"])) // (STEPS + 1)})
     phase_profile(model)
     serve_launches = phase_serve(model, mm_paths)
     precompute_launches = phase_precompute(model, mm_paths)
@@ -3188,7 +3694,8 @@ def main():
         names = write_synthetic_catalog(catalog, NATIVE_ITEMS)
         phase_native_loader(catalog, names)
         phase_eval_towers()
-        phase_extract_clip(catalog, names, encode_gn)
+        feats = phase_extract_clip(catalog, names, encode_gn)
+        parity_launches = phase_evaluate_parity(catalog, names, feats, main_fwd)
     # the training path, after the generation path: a backward leaves buffers
     # of its own (the autograd thread's cuBLAS workspace) that would count in
     # the main path's peak memory
@@ -3209,10 +3716,11 @@ def main():
     live_state_bytes = phase_train_cli(train_launches, train_seconds)
     phase_info(live_state_bytes, train_peak)
     phase_jax_checkpoint(train_launches)
+    proof_launches = phase_learning_proof()
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                       f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
-                      bwd_sd15_results, train_fp32))
+                      bwd_sd15_results, train_fp32, parity_launches, proof_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -1,11 +1,21 @@
 """Command dispatcher: `python -m difashion_tpu_torch <command> [...]`.
 
-Commands ported so far:
+Commands (each runs on the card unless given `--device cpu`):
   train              the fine-tuning loop (checkpoints, resume, metrics)
   extract-features   catalog VAE moments and CLIP features (`--stage vae|clip|all`)
   generate           FITB / GOR generation of a split into a JPEG tree
+  evaluate           the metric cascades over generated runs (`--task`, `--grounding`)
+  parity             generate -> evaluate -> the table against the reference, FID / LPIPS
+                     gated at 2 % (`--allow_random_weights`: plumbing runs only)
   serve              the HTTP generation service
   info               the visible devices and the training state's memory plan
+
+On the CPU at the tiny sizes (tests and plumbing): `evaluate --tiny --device cpu
+--allow_random_weights ...` and `parity --tiny --device cpu --allow_random_weights ...`
+with the flags each prints under `--help`; on the card the same without
+`--tiny --device cpu`. The mid-scale learning proof is a script:
+`python3 scripts/learning_proof_cuda.py [--steps 6000]` (train -> generate ->
+the reconstruction gates; its report goes to `scripts/logs/`).
 """
 import sys
 
@@ -22,6 +32,10 @@ def main(argv=None) -> int:
         from difashion_tpu_torch.cli.extract_features import main as run
     elif cmd == "generate":
         from difashion_tpu_torch.cli.generate import main as run
+    elif cmd == "evaluate":
+        from difashion_tpu_torch.cli.evaluate import main as run
+    elif cmd == "parity":
+        from difashion_tpu_torch.cli.parity import main as run
     elif cmd == "serve":
         from difashion_tpu_torch.cli.serve import main as run
     elif cmd == "info":

@@ -16,12 +16,13 @@ The format (`flax.serialization.to_bytes` / `msgpack_restore`):
     packs it.
 
 `dump` / `packb` write that byte for byte (torch tensors, numpy arrays and
-numpy scalars as leaves). `MappedFile` reads a file through mmaps: its
-tree's array leaves are `Blob`s (offset, shape, dtype) that `tensor()` turns
-into tensors over a map of just their bytes, without a copy, unmapped with
-the tensor; so a 14 GB checkpoint is never held in memory twice, or at
-once. `unpackb` decodes bytes into a tree of tensors (copies). The dtype
-name "bfloat16" is read as int16 and viewed as torch.bfloat16.
+numpy scalars as leaves). `MappedFile` parses a file's structure from
+reads that skip its arrays' bytes: its tree's array leaves are `Blob`s
+(offset, shape, dtype) that `tensor()` turns into tensors over a map of just
+their bytes, without a copy, unmapped with the tensor; so a 14 GB checkpoint
+is never mapped, or held in memory, twice or at once. `unpackb` decodes
+bytes into a tree of tensors (copies). The dtype name "bfloat16" is read as
+int16 and viewed as torch.bfloat16.
 """
 from __future__ import annotations
 
@@ -229,16 +230,46 @@ class Chunked:
     chunks: List[Blob]
 
 
-class _Reader:
-    def __init__(self, buf, base: int = 0):
-        self.buf, self.pos, self.base = buf, 0, base
+class _FileBytes:
+    """A file's bytes, read (pread) in blocks as they are sliced: what the
+    parser reads of a file whose arrays it skips."""
 
-    def take(self, n: int) -> memoryview:
+    BLOCK = 1 << 16
+
+    def __init__(self, fd: int):
+        self.fd, self.size = fd, os.fstat(fd).st_size
+        self._at, self._block = 0, b""
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, s: slice) -> bytes:
+        if not self._at <= s.start <= s.stop <= self._at + len(self._block):
+            self._at = s.start
+            self._block = os.pread(self.fd, max(s.stop - s.start, self.BLOCK), s.start)
+        return self._block[s.start - self._at:s.stop - self._at]
+
+
+class _Reader:
+    """Decodes msgpack from `buf` (a memoryview or `_FileBytes`); array and
+    bin payloads are skipped, recorded by their offsets."""
+
+    def __init__(self, buf):
+        self.buf, self.pos = buf, 0
+
+    def take(self, n: int):
+        start = self.pos
+        out = self.buf[start:self.skip(n)]
+        if len(out) != n:       # a file cut short after it was opened
+            raise ValueError("msgpack data ends early")
+        return out
+
+    def skip(self, n: int) -> int:
+        """Move past n bytes without reading them; the new position."""
         if self.pos + n > len(self.buf):
             raise ValueError("msgpack data ends early")
-        out = self.buf[self.pos:self.pos + n]
         self.pos += n
-        return out
+        return self.pos
 
     def unpack(self, fmt: str):
         return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
@@ -268,8 +299,7 @@ class _Reader:
         bins = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}
         if b in bins:
             n = self.unpack(bins[b])
-            self.take(n)
-            return Bin(self.base + self.pos - n, n)
+            return Bin(self.skip(n) - n, n)
         if b in (0xDC, 0xDD):
             return self.array(self.unpack(">H" if b == 0xDC else ">I"))
         if b in (0xDE, 0xDF):
@@ -282,11 +312,12 @@ class _Reader:
         else:
             raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
         code = self.unpack("b")
-        start = self.pos
-        data = self.take(n)
         if code not in (EXT_NDARRAY, EXT_NPSCALAR):
             raise ValueError(f"unsupported msgpack ext type {code}")
-        shape, name, raw = _Reader(data, self.base + start).obj()
+        end = self.pos + n    # the payload is msgpack itself: (shape, name, bytes)
+        shape, name, raw = self.obj()
+        if self.pos != end:
+            raise ValueError(f"msgpack ext payload of {n} bytes holds {n + self.pos - end}")
         return Blob(raw.offset, raw.nbytes, tuple(int(d) for d in shape), name,
                     scalar=code == EXT_NPSCALAR)
 
@@ -329,8 +360,10 @@ def _blob_tensor(buf, blob: Blob, base: int = 0) -> torch.Tensor:
 
 class MappedFile:
     """A flax msgpack file read through mmaps. `tree` is the decoded tree,
-    with `Blob` / `Chunked` leaves (the structure is parsed from one map of
-    the file, unmapped again at once). `tensor(leaf)` maps that array's own
+    with `Blob` / `Chunked` leaves (the structure is parsed from reads of
+    its headers: some hosts count a map of the whole file in the process's
+    resident set in full, 7 GB for an sd2_base optimizer state).
+    `tensor(leaf)` maps that array's own
     window of the file (a private map: no copy until the tensor is copied
     elsewhere) and returns a tensor over it; the window is unmapped when the
     last tensor over it is freed. So reading a file leaf by leaf keeps about
@@ -338,15 +371,7 @@ class MappedFile:
 
     def __init__(self, path: str):
         self._f = open(path, "rb")
-        size = os.fstat(self._f.fileno()).st_size
-        mm = mmap.mmap(self._f.fileno(), 0, access=mmap.ACCESS_READ) if size else b""
-        view = memoryview(mm)
-        try:
-            self.tree = _Reader(view).obj()
-        finally:
-            view.release()
-            if size:
-                mm.close()
+        self.tree = _Reader(_FileBytes(self._f.fileno())).obj()
 
     def tensor(self, leaf) -> torch.Tensor:
         """The leaf as a tensor over its mapped bytes (a chunked array is

@@ -313,3 +313,217 @@ def test_extract_features_clip_stage_matches_the_jax_command(weights_dir, tmp_pa
     # the history means are the catalog features' means
     hist = process_history_clip_embs({1: {2: [3, 4]}}, feats)
     np.testing.assert_allclose(hist[1][2], (feats[3] + feats[4]) / 2, rtol=1e-6)
+
+
+# ---- the cascades and the evaluate command through the towers ------------------
+
+@pytest.mark.parametrize("n,d", [(40, 12), (4, 64), (8, 96)])
+def test_low_rank_fid_is_the_metric(n, d):
+    from test_torch_port_eval_drivers import low_rank_fid
+
+    rng = np.random.RandomState(n + d)
+    a, b = rng.randn(n, d), rng.randn(n + 3, d) * 1.2 + 0.3
+    np.testing.assert_allclose(low_rank_fid(a, b), tmet.fid_from_features(a, b), rtol=1e-6)
+
+
+@pytest.fixture
+def cheap_fid(monkeypatch):
+    """Both packages' cascades compute FID by `low_rank_fid`."""
+    from difashion_tpu.eval import drivers as jdrv
+    from difashion_tpu_torch.eval import drivers as tdrv
+    from test_torch_port_eval_drivers import low_rank_fid
+
+    for drv in (jdrv, tdrv):
+        monkeypatch.setattr(drv, "fid_from_features", low_rank_fid)
+
+
+# The cascades over the exported tiny towers in each package: the CLIP scores,
+# LPIPS, the Inception metrics and compat within CONV_TOL (2e-4: the towers'
+# own tolerance; a mean of cosines or sigmoids does not magnify it). FID
+# within 1e-3 relative and no absolute slack (the random FID tower's
+# distances are ~1e-5 here): with 3-12 images against 2048 features the
+# covariances have rank N - 1, and the distance is a difference of traces
+# that nearly cancel, which magnifies the features' relative error; measured
+# 2.6e-6.
+FID_TOL = dict(rtol=1e-3, atol=0.0)
+
+
+def _tower_ctx(pkg, X, items, cands):
+    cnn = pkg.extract_catalog_clip_features(X, lambda i: items[i], len(items), batch_size=8)
+    return pkg.EvalContext(
+        extractors=X, id_cate_dict={c: f"cate{c}" for c in range(1, 6)},
+        item_image_loader=lambda i: items[i], cnn_features_clip=cnn,
+        history_clipembs=pkg.process_history_clip_embs({1: {1: [3, 4]}, 2: {2: [5]}}, cnn),
+        retrieval_candidates=cands,
+        cate_iid_dict={c: list(range(1, 30)) for c in range(1, 6)}, img_size=32)
+
+
+def _assert_tower_results(got, want):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        if isinstance(w, dict):
+            assert got[k].keys() == w.keys()
+            for kk in w:
+                np.testing.assert_allclose(got[k][kk], w[kk], **CONV_TOL, err_msg=f"{k}.{kk}")
+        else:
+            assert type(got[k]) is type(w), k
+            np.testing.assert_allclose(got[k], w, **(FID_TOL if k == "fid" else CONV_TOL),
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("task", ["FITB", "GOR"])
+def test_cascades_through_the_towers_match_jax(both, task, tmp_path, cheap_fid):
+    from difashion_tpu.eval import drivers as jdrv
+    from difashion_tpu_torch.eval import drivers as tdrv
+    from test_torch_port_eval_drivers import make_manifest
+
+    jx, tx = both
+    items = _images(30, 32, 32, seed=11)
+    run, grd, cands = make_manifest(tmp_path, task)
+    res = {}
+    for pkg, X in ((jdrv, jx), (tdrv, tx)):
+        cascade = pkg.evaluate_fitb if task == "FITB" else pkg.evaluate_gor
+        res[pkg] = cascade(run, _tower_ctx(pkg, X, items, cands), grd,
+                           out_path=str(tmp_path / f"{pkg.__name__}.npy"))
+    _assert_tower_results(res[tdrv], res[jdrv])
+
+
+def test_evaluate_command_matches_the_jax_command(weights_dir, tmp_path, cheap_fid):
+    """`evaluate --tiny --device cpu` against the JAX package's `evaluate
+    --tiny` over copies of one generated run (FITB, test split), with the
+    same weights directory, catalog features and histories: the two results
+    files. Then the port's command on the JAX command's file computes
+    nothing."""
+    import shutil
+
+    from PIL import Image
+
+    from difashion_tpu.cli.evaluate import main as jax_main
+    from test_torch_port_eval_drivers import make_manifest
+
+    data, imgs = tmp_path / "data", tmp_path / "imgs"
+    imgs.mkdir()
+    run, grd, cands = make_manifest(tmp_path / "gen", "FITB")
+    _write_dataset(data, {"test_grd.npy": grd, "fitb_test_retrieval_candidates.npy": cands,
+                          "valid_grd.npy": {900: grd[100]},
+                          "id_cate_dict.npy": {c: f"cate{c}" for c in range(1, 6)},
+                          "test_history.npy": {1: {1: [3, 4]}}})
+    rng = np.random.RandomState(12)
+    names = []
+    for i in range(30):
+        Image.fromarray(rng.randint(0, 255, (40, 40, 3), dtype=np.uint8)).save(
+            imgs / f"i{i}.png")
+        names.append(f"i{i}.png")
+    np.save(tmp_path / "paths.npy", np.array(names, dtype=object))
+    np.save(tmp_path / "cnn.npy", rng.randn(30, 16).astype(np.float32))
+    np.save(tmp_path / "hist.npy", np.array({1: {1: rng.randn(16).astype(np.float32)}},
+                                            dtype=object))
+    args = ["--data_path", str(data), "--task", "FITB", "--mode", "test", "--tiny",
+            "--weights_dir", weights_dir, "--img_folder_path", str(imgs),
+            "--image_paths_npy", str(tmp_path / "paths.npy"),
+            "--cnn_features_npy", str(tmp_path / "cnn.npy"),
+            "--hist_clipembs_npy", str(tmp_path / "hist.npy"), "--batch_size", "4"]
+    results = {}
+    for who in ("jax", "port"):
+        gen = tmp_path / f"gen_{who}"
+        shutil.copytree(tmp_path / "gen", gen)
+        if who == "jax":
+            jax_main(args + ["--gen_dir", str(gen)])
+        else:
+            assert port_main(["evaluate", *args, "--gen_dir", str(gen), "--device", "cpu"]) == 0
+        results[who] = np.load(gen / "eval_results.npy", allow_pickle=True).item()
+    assert list(results["port"]) == list(results["jax"]) == ["FITB-run"]
+    _assert_tower_results(results["port"]["FITB-run"], results["jax"]["FITB-run"])
+    # the JAX command's file, resumed by the port's command: nothing to compute
+    from difashion_tpu_torch.eval import extractors as textr
+
+    calls = []
+    real = textr.Extractors.clip_image_embs
+    textr.Extractors.clip_image_embs = lambda self, x: calls.append(len(x)) or real(self, x)
+    try:
+        port_main(["evaluate", *args, "--gen_dir", str(tmp_path / "gen_jax"),
+                   "--device", "cpu"])
+    finally:
+        textr.Extractors.clip_image_embs = real
+    assert calls == []
+    # a run of the other split stops the command before a cascade runs
+    with pytest.raises(SystemExit, match="other --mode"):
+        port_main(["evaluate", *[a if a != "test" else "valid" for a in args],
+                   "--gen_dir", str(tmp_path / "gen_port"), "--device", "cpu"])
+
+
+# ---- the committed torch-oracle fixtures ----------------------------------------
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "torch_oracles")
+
+
+def _golden(name):
+    with np.load(os.path.join(GOLDEN, name + ".npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_compat_net_matches_the_torch_oracle():
+    """`compat_evaluator.npz`: the reference's FashionEvaluator (cnn width 64)
+    and its outputs on tests/test_eval.py's inputs; its state dict loads
+    strict into the port's tower (the JAX test's tolerance)."""
+    fix = _golden("compat_evaluator")
+    net = tcompat.FashionEvaluator(64)
+    net.load_state_dict({k[3:]: torch.from_numpy(v) for k, v in fix.items()
+                         if k.startswith("sd.")}, strict=True)
+    x = np.random.RandomState(5).randn(3, 4, 64).astype(np.float32)
+    with torch.inference_mode():
+        got = net.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, fix["ref"], rtol=1e-4, atol=1e-4)
+
+
+def test_clip_image_tower_matches_the_hf_oracle():
+    """`hf_clip_vision.npz`: transformers' CLIPVisionModel (width 64, 2
+    layers, 4 heads, 28 px, exact GELU) and its pooled output; its weights
+    renamed into open_clip's names (q / k / v stacked into in_proj) load
+    strict into the port's image tower, with an identity projection (HF's
+    pooler has none). The JAX test's tolerance."""
+    fix = _golden("hf_clip_vision")
+    sd = {k[len("sd.vision_model."):]: torch.from_numpy(v) for k, v in fix.items()
+          if k.startswith("sd.")}
+    ours = {"conv1.weight": sd["embeddings.patch_embedding.weight"],
+            "class_embedding": sd["embeddings.class_embedding"],
+            "positional_embedding": sd["embeddings.position_embedding.weight"],
+            "proj": torch.eye(64)}
+    for hf, oc in (("pre_layrnorm", "ln_pre"), ("post_layernorm", "ln_post")):
+        for p in ("weight", "bias"):
+            ours[f"{oc}.{p}"] = sd[f"{hf}.{p}"]
+    for i in range(2):
+        hf, oc = f"encoder.layers.{i}.", f"transformer.resblocks.{i}."
+        for p in ("weight", "bias"):
+            ours[f"{oc}attn.in_proj_{p}"] = torch.cat(
+                [sd[f"{hf}self_attn.{x}_proj.{p}"] for x in "qkv"])
+            for a, b in (("self_attn.out_proj", "attn.out_proj"), ("layer_norm1", "ln_1"),
+                         ("layer_norm2", "ln_2"), ("mlp.fc1", "mlp.c_fc"),
+                         ("mlp.fc2", "mlp.c_proj")):
+                ours[f"{oc}{b}.{p}"] = sd[f"{hf}{a}.{p}"]
+    tower = tvit.CLIPImageEncoder(tvit.ViTConfig(image_size=28, patch_size=14, width=64,
+                                                 layers=2, heads=4, embed_dim=64))
+    tower.load_state_dict(ours, strict=True)
+    imgs = np.random.RandomState(2).randn(2, 28, 28, 3).astype(np.float32) * 0.5
+    with torch.inference_mode():
+        got = tower.eval()(torch.from_numpy(imgs).permute(0, 3, 1, 2)).numpy()
+    np.testing.assert_allclose(got, fix["ref"], rtol=3e-4, atol=3e-5)
+
+
+def test_fid_resize_matches_the_torch_oracle():
+    """`prim_fid_resize.npz`: F.interpolate bilinear (align_corners=False)
+    from 64 x 48 to 299. An upsample, so the port's antialiasing changes
+    nothing (tests/test_torch_parity.py's inputs and tolerance)."""
+    x = np.random.RandomState(10).rand(2, 64, 48, 3).astype(np.float32)
+    got = text._resize_bilinear(x, 299).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, _golden("prim_fid_resize")["ref"], rtol=1e-4, atol=1e-5)
+
+
+def test_clip_scores_match_the_torch_cosine_oracle():
+    """`metric_clip_cosine.npz`: 100 x the mean of torch's cosine similarity
+    (tests/test_eval.py's inputs and tolerance)."""
+    rng = np.random.RandomState(2)
+    a, b = rng.randn(10, 32).astype(np.float32), rng.randn(10, 32).astype(np.float32)
+    ref = float(_golden("metric_clip_cosine")["ref"])
+    for fn in (tmet.clip_score, tmet.clip_image_score, tmet.personalization_sim):
+        np.testing.assert_allclose(fn(a, b), ref, rtol=1e-5)

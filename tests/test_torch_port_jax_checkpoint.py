@@ -122,6 +122,38 @@ def test_mapped_file_maps_each_leaf_on_its_own(tmp_path, monkeypatch):
     assert torch.equal(tm.MappedFile(str(path)).tensor(mf.tree["e0"]), tt["e0"])
 
 
+def test_mapped_file_parses_from_its_headers_alone(tmp_path, monkeypatch):
+    """The tree of a file holding a 32 MB array is parsed from reads of its
+    headers, under 1 MB in all, and with no map of the file (a map of the
+    whole file counts in the resident set); its leaves then read back
+    bit-equal; a file cut short inside an array is refused."""
+    big = np.random.RandomState(3).randn(8 << 20).astype(np.float32)
+    jt = {"w": jnp.asarray(big), "b": jnp.zeros(3), "n": "name", "r": b"raw"}
+    path = tmp_path / "big.msgpack"
+    path.write_bytes(serialization.to_bytes(jt))
+    reads, pread = [], os.pread
+
+    def counted(fd, n, offset):
+        reads.append(n)
+        return pread(fd, n, offset)
+
+    def no_map(*a, **k):
+        raise AssertionError("the file was mapped to parse it")
+
+    with monkeypatch.context() as m:
+        m.setattr(os, "pread", counted)
+        m.setattr(tm.mmap, "mmap", no_map)
+        mf = tm.MappedFile(str(path))
+    assert 0 < sum(reads) < 1 << 20
+    assert mf.tree["n"] == "name" and isinstance(mf.tree["r"], tm.Bin)
+    assert np.array_equal(mf.tensor(mf.tree["w"]).numpy(), big)
+    assert torch.equal(mf.tensor(mf.tree["b"]), torch.zeros(3))
+    mf.close()
+    (tmp_path / "cut.msgpack").write_bytes(path.read_bytes()[:1 << 20])
+    with pytest.raises(ValueError, match="ends early"):
+        tm.MappedFile(str(tmp_path / "cut.msgpack"))
+
+
 # ---- paths and layouts ---------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["tiny", "sd2_base", "sd15"])
