@@ -10,7 +10,8 @@ train command around it (checkpoints and a resume, and a checkpoint in the
 JAX package's layout), the catalog precompute (VAE encode at 512 px), the
 catalog features command with its evaluation towers (ViT-H/14 at full
 width), the evaluate and parity commands over generated runs, and a short
-leg of the mid-scale learning proof, and checks every hand-written
+leg of the mid-scale learning proof, data-parallel training (DDP and
+ZeRO-1) and sharded generation over several ranks, and checks every hand-written
 kernel of those paths against its plain PyTorch version. Phases, one JSON
 line each:
 
@@ -169,6 +170,22 @@ line each:
      the legs, checkpoints, runs and report, the same launches every train
      step (flash forward, dQ, dK/dV, GroupNorm) and every sampler forward,
      finite losses; seconds per step (the gates are the 6000-step run's).
+ 18. multi_gpu: data parallelism at the sd2_base widths in processes of
+     their own with torchrun's environment (`core/distributed.py`): NCCL
+     over every card (one rank a card), two data-parallel steps of the
+     recipe against two one-process steps over the same global batch; then
+     two gloo ranks sharing card 0 with CUDA tensors, 1 outfit each: a
+     data-parallel step against the one-process step over both outfits
+     (within DDP_LOSS_REL_TOL and DDP_UPDATE_REL_L2_TOL: bf16 rounds a row
+     by its place in the batch), a ZeRO-1 step against the data-parallel
+     one (1e-6), each rank's state bytes against the memory plan exactly,
+     and sharded GOR generation (2 outfits, 5-step PNDM, the latents
+     all-gathered every step) against the unsharded sampler, in fp32
+     (F32_REF_TOL) and in bf16 (no farther from the fp32 run than VS_PLAIN x
+     the unsharded bf16 run); per rank its launches (a step's the
+     one-process step's at its local batch, a sampler forward's the main
+     path's, or in fp32 its fp32 flash and GroupNorm launches), seconds per
+     step, the all-reduce and all-gather ms and the peak memory.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
@@ -2362,12 +2379,12 @@ class TrainCliProbe:
                 return out
             return run
 
-        def build_train_step(model, cfg):
+        def build_train_step(model, cfg, **kw):
             import torch
 
             from difashion_tpu_torch.nn import kernels
 
-            step, init = build(model, cfg)
+            step, init = build(model, cfg, **kw)
 
             def counted(state, *args):
                 before = dict(kernels.LAUNCHES)
@@ -3485,6 +3502,449 @@ def phase_learning_proof():
     return {"train_step": train[0], **{f"{t}_sampler_forward": per[0] for t, per in fwd.items()}}
 
 
+MULTI_GPU_STEPS = {"nccl": 2, "gloo": 1}   # train steps of each leg (reference and data-parallel)
+MULTI_GPU_GEN_DTYPES = ("float32", "bfloat16")   # sharded GOR runs, in this order
+MULTI_GPU_GEN_STEPS = 5                           # their PNDM steps (6 UNet forwards)
+MULTI_GPU_TIMEOUT = {"nccl": 300, "gloo": 480}   # seconds a leg's ranks may take
+# The data-parallel step against the one-process step over the same global
+# batch on the card, in bf16 autocast: a row's draws are the same, but
+# cuDNN's bf16 convolutions round a row by its place in the batch (the note
+# on the pipeline's initial noise, ROADMAP §3) and the skinny-N gate takes
+# other products at 4 rows than at 8, so the two differ by bf16 rounding:
+# the loss within 1e-3 relative (a mean of 2^17 squared errors, each rounded
+# at 2^-9), the parameter update within 0.2 relative L2 (AdamW's first
+# update is about lr * sign(g), and a gradient element near 0 that rounds
+# the other way flips its update). Measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: 2.9e-5 and 0.042.
+DDP_LOSS_REL_TOL = 1e-3
+DDP_UPDATE_REL_L2_TOL = 0.2
+# Sharded generation against the unsharded sampler on rank 0, two ways.
+# (1) One outfit a batch: the 16 UNet rows a rank's sampler runs, so only
+# the sharding (the all-gathered latents and mutual input) differs; held as
+# the serve phase holds regrouped fills: bit-identical, or within
+# REGROUP_MEAN_TOL uint8 levels on average. (2) Both outfits in one batch
+# of 32 rows: in fp32 the same arithmetic with sums in another order (other
+# batch sizes pick other convolution algorithms) through guided steps at
+# CFG scale 12, within F32_REF_TOL relative L2; in bf16 a row's rounding
+# depends on its batch (above: cuDNN's position-dependent rounding, and 130
+# skinny-N products a forward at 16 rows against 138 at 32), amplified by
+# the guidance, more than REGROUP_MEAN_TOL allows, so the sharded bf16 run
+# may be no farther from the unsharded fp32 run than VS_PLAIN times the
+# unsharded bf16 run. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# against one outfit a batch, bit-identical in fp32 and bf16 (so the gap
+# below is the batch size's, not the sharding's); against the 32-row run,
+# fp32 7.1e-6, bf16 0.02243 against 0.02242 from fp32 and 1.55 uint8
+# levels on average.
+# ZeRO-1 against data parallel: the same elementwise update on slices
+# (__graft_entry__.py's rtol / atol)
+ZERO1_RTOL = ZERO1_ATOL = 1e-6
+
+
+def multi_gpu_batch(model, global_outfits, rank, world):
+    """The legs' global batch of `global_outfits` x 4 items (the VAE's
+    moments, ids, history), made on the host from a fixed seed alike on
+    every rank, and this rank's shard of it (`host_shard`) on its device.
+    Returns (global batch, local batch, null latent, null text)."""
+    import numpy as np
+    import torch
+
+    from difashion_tpu_torch.core.distributed import host_shard
+    from difashion_tpu_torch.engine.train import TrainBatch
+
+    cfg = model.config
+    s, C, olen = cfg.unet.sample_size, cfg.vae.latent_channels, 4
+    rng = np.random.RandomState(29)
+    shape = (global_outfits, olen, s, s, C)
+    arrays = {"mean": (rng.randn(*shape) * 4.0).astype(np.float32),
+              "logvar": rng.uniform(-8, -2, shape).astype(np.float32),
+              "ids": rng.randint(0, cfg.text.vocab_size, (global_outfits, olen, 77)),
+              "hist": (rng.randn(*shape) * 0.3).astype(np.float32)}
+    dev = next(model.parameters()).device
+
+    def batch(a):
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in a.items()}
+        return TrainBatch(images=None, latent_mean=t["mean"], latent_logvar=t["logvar"],
+                          input_ids=t["ids"].long(), hist_latents=t["hist"])
+    null_latent = torch.from_numpy((rng.randn(s, s, C) * 0.05).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        null_text = model.encode_text(torch.zeros(1, 77, dtype=torch.long, device=dev))[0]
+    return batch(arrays), batch(host_shard(arrays, rank, world)), null_latent, null_text
+
+
+def multi_gpu_steps(step, state, batch, null_latent, null_text, n):
+    """n steps from the recipe's seed: per step its loss, seconds and
+    launches; the peak memory of the run."""
+    import torch
+
+    from difashion_tpu_torch.config import TrainConfig
+    from difashion_tpu_torch.nn import kernels
+
+    dev = batch.latent_mean.device
+    gen = torch.Generator(device=dev).manual_seed(TrainConfig().seed)
+    rows = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(n):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, null_latent, null_text, gen)
+        loss = float(m["loss"])
+        torch.cuda.synchronize(dev)
+        rows.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                     "skipped": m["update_skipped"], "launches": dict(kernels.LAUNCHES)})
+    return state, rows, torch.cuda.max_memory_allocated(dev)
+
+
+def live_bytes(model, state):
+    """The training state's bytes on this rank: trainable and frozen
+    parameters, optimizer state and EMA (what `state_memory_accounting`
+    plans, but for the gradients, which live during the update only)."""
+    from difashion_tpu_torch.engine.memory import state_bytes
+    from difashion_tpu_torch.models.difashion import FROZEN
+
+    frozen = sum(p.numel() * p.element_size() for t in FROZEN
+                 for p in getattr(model, t).parameters())
+    return sum(state_bytes(state).values()) + frozen
+
+
+def gor_outfits(model, n, seed=31):
+    """`n` GOR outfits (every slot generated), each `gor_inputs`' kind from
+    its own seed; the null latent and text are the first outfit's."""
+    import torch
+
+    from difashion_tpu_torch.engine.generate import GenerationInputs
+
+    dev = next(model.parameters()).device
+    parts = [gor_inputs(model, torch.Generator().manual_seed(seed + i), dev) for i in range(n)]
+    F = parts[0].init_latents.shape[0]
+    cat = lambda name: torch.cat([getattr(p, name) for p in parts])
+    return GenerationInputs(
+        init_latents=cat("init_latents"),
+        outfit_idx=torch.arange(n, device=dev).repeat_interleave(F),
+        known_latents=cat("known_latents"), gen_mask=cat("gen_mask"),
+        gen_index=torch.arange(n * F, device=dev).view(n, F),
+        hist_latents=cat("hist_latents"), cate_text=cat("cate_text"),
+        null_text=parts[0].null_text, null_latent=parts[0].null_latent)
+
+
+def multi_gpu_rank(leg, out_dir):
+    """One rank of a multi_gpu leg (the process torchrun's environment
+    describes): "nccl", one rank per card, two data-parallel steps of the
+    recipe against two one-process steps over the same global batch; or
+    "gloo", ranks sharing card 0, a data-parallel step and a ZeRO-1 step
+    against the one-process step, the state's bytes against the memory
+    plan, and sharded GOR generation against the unsharded sampler. Writes
+    its numbers to `<out_dir>/<leg>_rank<r>.json`."""
+    import torch
+    import torch.distributed as dist
+
+    from difashion_tpu_torch.config import ModelConfig, TrainConfig
+    from difashion_tpu_torch.core import distributed
+    from difashion_tpu_torch.engine.memory import state_memory_accounting
+    from difashion_tpu_torch.engine.train import build_train_step
+    from difashion_tpu_torch.models.difashion import FROZEN, TRAINABLE, create_difashion
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend, device = ("nccl", "cuda") if leg == "nccl" else ("gloo", "cuda:0")
+    dp = distributed.initialize_distributed(backend, device)
+    dev, n_steps = dp.device, MULTI_GPU_STEPS[leg]
+    res = {"leg": leg, "backend": dist.get_backend(), "rank": dp.rank, "world": dp.world,
+           "device": str(dev), "card": torch.cuda.get_device_name(dev)}
+    if leg == "nccl":   # the group's collectives on the cards themselves
+        probe = torch.full((4,), float(dp.rank + 1), device=dev)
+        dist.all_reduce(probe)
+        res["nccl_all_reduce_ok"] = bool((probe == dp.world * (dp.world + 1) / 2).all())
+    tc = TrainConfig()
+    t0 = time.perf_counter()
+    model = create_difashion(ModelConfig.sd2_base(), seed=0, device=dev)
+    distributed.check_same_parameters(model, TRAINABLE + FROZEN, dp.world)
+    res["build_s"] = time.perf_counter() - t0
+    outfits = -(-tc.train_batch_size // dp.world) * dp.world
+    gbatch, lbatch, null_latent, null_text = multi_gpu_batch(model, outfits, dp.rank, dp.world)
+    trainable = [p for _, p in model.trainable_parameters()]
+    init = [p.detach().to("cpu", copy=True) for p in trainable]
+
+    def reset():
+        with torch.no_grad():
+            for p, v in zip(trainable, init):
+                p.copy_(v, non_blocking=False)
+                p.grad = None
+
+    # the one-process references: rank 0 over the global batch, rank 1 over
+    # its local batch (the launches a rank's step must match)
+    ref_params = None
+    if dp.rank == 0 or dp.rank == 1:
+        step, init_state = build_train_step(model, tc)
+        n = n_steps if dp.rank == 0 else 1
+        _, rows, _ = multi_gpu_steps(step, init_state(), gbatch if dp.rank == 0 else lbatch,
+                                     null_latent, null_text, n)
+        res["reference" if dp.rank == 0 else "local_reference"] = rows
+        if dp.rank == 0:
+            ref_params = [p.detach().clone() for p in trainable]
+            if dp.world == 1:
+                res["local_reference"] = rows[:1]
+        del step, init_state, rows
+        reset()
+        torch.cuda.empty_cache()
+    distributed.barrier()
+
+    def update_gap(params):
+        """The data-parallel update against the reference's: relative L2
+        of their difference, and the largest |difference| in units of lr."""
+        num = den = big = 0.0
+        for p, r, v in zip(params, ref_params, init):
+            v = v.to(dev)
+            d_ref = r - v
+            diff = (p.detach() - v) - d_ref
+            num += float(diff.double().square().sum())
+            den += float(d_ref.double().square().sum())
+            big = max(big, float(diff.abs().max()))
+        return {"update_rel_l2": math.sqrt(num / den), "max_abs_over_lr": big / tc.learning_rate}
+
+    # data parallel
+    step, init_state = build_train_step(model, tc, dp=dp)
+    state, rows, peak = multi_gpu_steps(step, init_state(), lbatch, null_latent, null_text,
+                                        n_steps)
+    ddp = {"steps": rows, "peak_bytes": peak, "live_bytes": live_bytes(model, state)}
+    distributed.check_same_parameters(model, TRAINABLE, dp.world)   # every rank alike
+    grads = [p.grad for p in state.params if p.grad is not None]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    distributed.all_reduce_mean_(grads, dp.world)   # means of equal values: unchanged
+    torch.cuda.synchronize(dev)
+    ddp["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3
+    if ref_params is not None:
+        ddp.update(update_gap(state.params))
+    res["ddp"] = ddp
+    del ref_params
+    if leg == "nccl":
+        distributed.destroy()
+        return _write_rank(out_dir, leg, dp.rank, res)
+    ddp_params = [p.detach().clone() for p in state.params]
+    del step, init_state, state, grads
+    reset()
+    torch.cuda.empty_cache()
+
+    # ZeRO-1
+    step, init_state = build_train_step(model, tc, dp=dp, zero1=True)
+    state, rows, peak = multi_gpu_steps(step, init_state(), lbatch, null_latent, null_text,
+                                        n_steps)
+    worst = max_abs = 0.0
+    for p, q in zip(state.params, ddp_params):
+        d = (p.detach() - q).abs()
+        worst = max(worst, float((d / (ZERO1_ATOL + ZERO1_RTOL * q.abs())).max()))
+        max_abs = max(max_abs, float(d.max()))
+    z1 = {"steps": rows, "peak_bytes": peak, "live_bytes": live_bytes(model, state),
+          "vs_ddp_max_abs": max_abs, "vs_ddp_tol_ratio": worst,
+          "sharded_tensors": len(state.zero1.sharded()), "tensors": len(state.params)}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state.zero1.collect_(state.params)     # the step's gather again: the same values
+    torch.cuda.synchronize(dev)
+    z1["all_gather_ms"] = (time.perf_counter() - t0) * 1e3
+    res["zero1"] = z1
+    acc = state_memory_accounting(ModelConfig.sd2_base(), tc, n_devices=dp.world)
+    res["plan"] = {k: acc[k] - acc["buckets"]["grads_transient"]
+                   for k in ("per_chip_bytes_dp", "per_chip_bytes_zero1")}
+    res["plan"]["grads_transient"] = acc["buckets"]["grads_transient"]
+    del step, init_state, state, ddp_params
+    reset()
+    torch.cuda.empty_cache()
+
+    # sharded GOR generation: in fp32 (the trained model; the sharding's
+    # arithmetic), then in bf16 (the main path's kernels)
+    model.eval()
+    res["generation"], fp32_whole = {}, None
+    for dtype in MULTI_GPU_GEN_DTYPES:
+        model.to(getattr(torch, dtype))
+        gen, whole = sharded_gor(model, dp, fp32_whole)
+        res["generation"][f"{dtype}_pndm{MULTI_GPU_GEN_STEPS}"] = gen
+        if dtype == "float32":
+            fp32_whole = whole
+    distributed.destroy()
+    _write_rank(out_dir, leg, dp.rank, res)
+
+
+def sharded_gor(model, dp, fp32_whole=None):
+    """GOR over `dp.world` outfits sharded over the ranks (each its
+    outfit's 16 UNet rows; the latents all-gathered every step), PNDM at
+    MULTI_GPU_GEN_STEPS, against the unsharded sampler on rank 0: one
+    outfit a batch (`per_outfit_*`: the rows a rank runs) and all the
+    outfits in one batch; and against `fp32_whole`, the unsharded fp32 run
+    over all, when given. The latents' and the decoded images' differences,
+    the rank's seconds and launches. Returns (numbers, the unsharded
+    latents over all the outfits on rank 0)."""
+    import torch
+
+    from difashion_tpu_torch.core import distributed
+    from difashion_tpu_torch.diffusion.pndm import make_pndm_plan
+    from difashion_tpu_torch.engine.generate import (build_sampler, decode_to_uint8,
+                                                     make_guidance_spec,
+                                                     shard_generation_inputs)
+    from difashion_tpu_torch.nn import kernels
+
+    dev = dp.device
+    inputs = gor_outfits(model, dp.world)
+    F = inputs.init_latents.shape[0]
+    sampler = build_sampler(model, num_inference_steps=MULTI_GPU_GEN_STEPS, scheduler="pndm",
+                            spec=make_guidance_spec(*CFG_SCALES), eta=ETA)
+    kernels.reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rows = sampler(shard_generation_inputs(inputs, dp.rank, dp.world), dp=dp)
+    torch.cuda.synchronize(dev)
+    gen = {"seconds": time.perf_counter() - t0, "rows": int(rows.shape[0]),
+           "forwards": len(make_pndm_plan(model.schedule, MULTI_GPU_GEN_STEPS)),
+           "launches": dict(kernels.LAUNCHES)}
+    latents = distributed.gather_rows(rows, dp.world)[:F]
+    whole = None
+    if dp.rank == 0:
+        whole = sampler(inputs)
+        per_outfit = torch.cat([sampler(gor_outfits(model, 1, seed=31 + i)._replace(
+            null_latent=inputs.null_latent)) for i in range(dp.world)])
+        a = decode_to_uint8(model, latents)
+        gen["fills"] = F
+        for prefix, ref in (("per_outfit_", per_outfit), ("", whole)):
+            b = decode_to_uint8(model, ref)
+            gen.update({f"{prefix}latents_max_abs_diff": float((latents - ref).abs().max()),
+                        f"{prefix}latents_rel_l2": rel_l2(latents, ref),
+                        f"{prefix}uint8_mean_abs_diff": float((a.float() - b.float()).abs().mean()),
+                        f"{prefix}uint8_max_abs_diff": int((a.int() - b.int()).abs().max())})
+        if fp32_whole is not None:
+            gen.update({"vs_fp32_rel_l2": rel_l2(latents, fp32_whole),
+                        "unsharded_vs_fp32_rel_l2": rel_l2(whole, fp32_whole)})
+    return gen, whole
+
+
+def _write_rank(out_dir, leg, rank, res):
+    with open(os.path.join(out_dir, f"{leg}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def run_ranks(leg, world, out_dir):
+    """`world` processes of this script in `leg`, with torchrun's
+    environment; their output forwarded to stderr. Raises when a rank fails
+    or the leg outlives its timeout (every rank is then killed). Returns
+    each rank's numbers."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multi-gpu-rank", leg, out_dir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + MULTI_GPU_TIMEOUT[leg]
+    outs, timed_out = [], False
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0])
+    for r, o in enumerate(outs):
+        for line in o.splitlines():
+            print(f"[multi_gpu {leg} rank {r}] {line}", file=sys.stderr)
+    if timed_out:
+        raise AssertionError(f"multi_gpu {leg}: ranks outlived {MULTI_GPU_TIMEOUT[leg]} s")
+    bad = {r: p.returncode for r, p in enumerate(procs) if p.returncode != 0}
+    if bad:
+        raise AssertionError(f"multi_gpu {leg}: ranks failed {bad}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{leg}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_multi_gpu(main_fwd):
+    """Data parallelism and sharded generation at the sd2_base widths, in
+    processes of their own (`multi_gpu_rank`): the NCCL leg over every card
+    (one rank a card), then the gloo leg of two ranks sharing card 0 with
+    CUDA tensors. Each rank's launches must be the one-process step's at its
+    local batch (the gloo leg's sampler forwards: `main_fwd` each, 16 rows
+    a rank). Returns each leg's launches per rank."""
+    import tempfile as tf
+
+    import torch
+
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    with tf.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        nccl = run_ranks("nccl", n, out)
+        nccl_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gloo = run_ranks("gloo", 2, out)
+        gloo_s = time.perf_counter() - t0
+    problems = []
+    for leg, ranks in (("nccl", nccl), ("gloo", gloo)):
+        ref, local = ranks[0]["reference"], ranks[1 if len(ranks) > 1 else 0]["local_reference"]
+        want = local[0]["launches"]
+        for r in ranks:
+            steps = r["ddp"]["steps"] + (r["zero1"]["steps"] if "zero1" in r else [])
+            if any(s["launches"] != want for s in steps):
+                problems.append(f"{leg} rank {r['rank']} launches "
+                                f"{[s['launches'] for s in steps]}, expected {want}")
+            if not all(math.isfinite(s["loss"]) and s["skipped"] == 0.0 for s in steps):
+                problems.append(f"{leg} rank {r['rank']} steps {steps}")
+            for s, want_loss in zip(r["ddp"]["steps"], ref):
+                if abs(s["loss"] - want_loss["loss"]) > DDP_LOSS_REL_TOL * abs(want_loss["loss"]):
+                    problems.append(f"{leg} loss {s['loss']} vs one process {want_loss['loss']}")
+        if ranks[0]["ddp"]["update_rel_l2"] > DDP_UPDATE_REL_L2_TOL:
+            problems.append(f"{leg} update vs one process {ranks[0]['ddp']}")
+    if not all(r["nccl_all_reduce_ok"] and r["backend"] == "nccl" for r in nccl):
+        problems.append(f"nccl group {nccl}")
+    for r in gloo:
+        if r["backend"] != "gloo" or r["zero1"]["vs_ddp_tol_ratio"] > 1.0:
+            problems.append(f"gloo rank {r['rank']} ZeRO-1 vs data parallel {r['zero1']}")
+        for scheme, key in (("ddp", "per_chip_bytes_dp"), ("zero1", "per_chip_bytes_zero1")):
+            if r[scheme]["live_bytes"] != r["plan"][key]:   # the plan less its gradients
+                problems.append(f"gloo rank {r['rank']} {scheme} state {r[scheme]['live_bytes']}"
+                                f" bytes, planned {r['plan'][key]}")
+        for run, g in r["generation"].items():
+            per = main_fwd if run.startswith("bfloat16") else all_counts(
+                {"flash_attention_fwd_f32": main_fwd["flash_attention_fwd"],
+                 "group_norm_silu": main_fwd["group_norm_silu"]})
+            want_gen = {k: v * g["forwards"] for k, v in per.items()}
+            if g["launches"] != want_gen or g["rows"] != 4:
+                problems.append(f"gloo rank {r['rank']} {run} sampler launches "
+                                f"{g['launches']}, expected {want_gen}")
+    for run, g in gloo[0]["generation"].items():
+        if not (g["per_outfit_latents_max_abs_diff"] == 0.0
+                or g["per_outfit_uint8_mean_abs_diff"] <= REGROUP_MEAN_TOL):
+            problems.append(f"sharded GOR {run} vs unsharded one outfit a batch {g}")
+        if (g["latents_rel_l2"] > F32_REF_TOL if run.startswith("float32")
+                else g["vs_fp32_rel_l2"] > VS_PLAIN * g["unsharded_vs_fp32_rel_l2"]):
+            problems.append(f"sharded GOR {run} vs unsharded {g}")
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("reference", "local_reference")}
+    emit({"phase": "multi_gpu", "cards": n, "nccl_seconds": nccl_s, "gloo_seconds": gloo_s,
+          "bounds": {"ddp_loss_rel": DDP_LOSS_REL_TOL,
+                     "ddp_update_rel_l2": DDP_UPDATE_REL_L2_TOL,
+                     "zero1_rtol_atol": ZERO1_RTOL,
+                     "sharded_gor_vs_per_outfit_uint8_mean": REGROUP_MEAN_TOL,
+                     "sharded_gor_fp32_rel_l2": F32_REF_TOL,
+                     "sharded_gor_bf16_vs_fp32": f"{VS_PLAIN} x the unsharded bf16 run's"},
+          "nccl": [strip(r) for r in nccl], "gloo": [strip(r) for r in gloo],
+          "references": {leg: {"global": ranks[0]["reference"],
+                               "local": ranks[-1]["local_reference"]}
+                         for leg, ranks in (("nccl", nccl), ("gloo", gloo))}})
+    if problems:
+        raise AssertionError("multi_gpu: " + "; ".join(problems))
+    return {"nccl_ddp_step": [r["ddp"]["steps"][0]["launches"] for r in nccl],
+            "gloo_ddp_step": [r["ddp"]["steps"][0]["launches"] for r in gloo],
+            "gloo_zero1_step": [r["zero1"]["steps"][0]["launches"] for r in gloo],
+            **{f"gloo_sharded_gor_{run}": [r["generation"][run]["launches"] for r in gloo]
+               for run in gloo[0]["generation"]}}
+
+
 def kernel_entry(name, rows, calls, prefix, per, launches, **extra):
     """A kernel's entry of the kernels line: its numbers (`<prefix>ms`,
     `<prefix>plain_ms`, `<prefix>bound_ms`, `library_ms`) summed over the
@@ -3562,7 +4022,8 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                  precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                  f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
-                 bwd_sd15_results, train_fp32, parity_launches, proof_launches):
+                 bwd_sd15_results, train_fp32, parity_launches, proof_launches,
+                 multi_launches):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
@@ -3573,8 +4034,10 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
     80), the backward's with the full-width fp32 step's numbers
     (`phase_train_fp32`); the GroupNorm kernel's as `gn_entry` says, the
     skinny-N kernel's as `mm_entry` says. Each entry also carries its
-    launches in the parity phase's generate legs (their UNet forwards) and in
-    one train step and one sampler forward of the learning proof."""
+    launches in the parity phase's generate legs (their UNet forwards), in
+    one train step and one sampler forward of the learning proof, and in the
+    multi_gpu phase per rank (a data-parallel step of each leg, a ZeRO-1
+    step, the sharded GOR run)."""
     fwd_rows = [dict(r, ms=r["kernel_ms"]) for r in results]
     sd15_rows = [dict(r, ms=r["kernel_ms"]) for r in sd15_results]
     f32_rows = [dict(r, ms=r["kernel_ms"]) for r in f32_results]
@@ -3644,6 +4107,8 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
     for e in entries:
         e["parity_generate_unet_launches"] = parity_launches[e["name"]]
         e["learning_proof_launches"] = {k: v[e["name"]] for k, v in proof_launches.items()}
+        e["multi_gpu_launches_per_rank"] = {k: [r[e["name"]] for r in v]
+                                            for k, v in multi_launches.items()}
     return {"kernels": entries}
 
 
@@ -3660,6 +4125,9 @@ def main():
     from difashion_tpu_torch.config import ModelConfig
     from difashion_tpu_torch.models.difashion import create_difashion
 
+    if sys.argv[1:2] == ["--multi-gpu-rank"]:   # a rank of phase multi_gpu
+        multi_gpu_rank(*sys.argv[2:4])
+        return
     phase_device()
     phase_build()
     cfg = ModelConfig.sd2_base()
@@ -3717,10 +4185,12 @@ def main():
     phase_info(live_state_bytes, train_peak)
     phase_jax_checkpoint(train_launches)
     proof_launches = phase_learning_proof()
+    multi_launches = phase_multi_gpu(main_fwd)
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                       f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
-                      bwd_sd15_results, train_fp32, parity_launches, proof_launches))
+                      bwd_sd15_results, train_fp32, parity_launches, proof_launches,
+                      multi_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -94,7 +94,11 @@ def _copy_into(tensors: List[torch.Tensor], names: List[str], saved: Dict[str, t
 
 def snapshot(state: TrainState) -> dict:
     """Everything a checkpoint holds, as CPU tensors: the device -> host copy
-    that `save_async` makes before its write starts."""
+    that `save_async` makes before its write starts. A ZeRO-1 state holds
+    one rank's slices: make it whole first (`gather_zero1_state`)."""
+    if state.zero1 is not None:
+        raise ValueError("a ZeRO-1 state holds one rank's slices of the moments and the "
+                         "EMA: save engine/train.py::gather_zero1_state's whole state")
     opt = state.opt_state
     fields = _OPT_LISTS[type(opt)]
     return {

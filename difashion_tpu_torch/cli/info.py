@@ -15,7 +15,12 @@ import json
 
 
 def device_report(dp_size: int = 0) -> dict:
+    """The devices, and the data-parallel world the plan is for: dp_size, or
+    the world a train command started alike would take (torchrun's group
+    size; 1 without torchrun: one process trains on one device)."""
     import torch
+
+    from difashion_tpu_torch.core.distributed import world_size
 
     cuda = torch.cuda.is_available()
     n = torch.cuda.device_count() if cuda else 1
@@ -23,7 +28,7 @@ def device_report(dp_size: int = 0) -> dict:
         "backend": "cuda" if cuda else "cpu",
         "devices": n,
         "device_kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-        "mesh": {"dp": dp_size if dp_size > 0 else n},
+        "mesh": {"dp": dp_size if dp_size > 0 else world_size()},
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
     }
@@ -34,7 +39,7 @@ def main(argv=None):
                                 description="devices + training-state memory planner")
     p.add_argument("--model", choices=["sd2_base", "sd15", "tiny"], default="sd2_base")
     p.add_argument("--dp_size", type=int, default=0,
-                   help="devices to plan for (default: all visible)")
+                   help="devices to plan for (default: the torchrun group's size, else 1)")
     p.add_argument("--adam8bit", action="store_true",
                    help="plan with block-wise int8 Adam moments")
     p.add_argument("--no_ema", action="store_true")

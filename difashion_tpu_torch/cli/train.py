@@ -17,11 +17,19 @@ the port's checkpoints or the JAX package's (`checkpoint.py`); the next ones
 are the port's, in the same directory. Metrics go to
 `<output_dir>/metrics.jsonl` and the trackers of `--report_to`.
 
-One device: `dp_size` -1 or 0 trains on the one card (logged), and a
-`dp_size` above 1 raises until the port's multi-GPU slice. Runs on the card
-unless `--device cpu`. PIL is needed for `--from_images`, for the first-run
-precompute of the catalog moments and for `--validation_steps` (JPEGs); each
-raises when PIL is missing.
+Data parallelism runs one process per device under torchrun:
+
+    torchrun --nproc_per_node N -m difashion_tpu_torch train --dp_size N ...
+
+(`--dp_size -1`, the default, takes the group's size). The group is NCCL on
+the cards, gloo with `--device cpu`; each rank trains on its contiguous
+shard of every global batch of `train_batch_size` outfits
+(`core/distributed.py::host_shard`) through the data-parallel step
+(`engine/train.py`), and rank 0 alone writes (the frozen towers,
+checkpoints, metrics, validation samples) while the others wait at a
+barrier. Runs on the card unless `--device cpu`. PIL is needed for
+`--from_images`, for the first-run precompute of the catalog moments and
+for `--validation_steps` (JPEGs); each raises when PIL is missing.
 """
 from __future__ import annotations
 
@@ -37,13 +45,15 @@ import torch
 from difashion_tpu_torch.checkpoint import CheckpointStore
 from difashion_tpu_torch.cli.common import load_config, setup_logging
 from difashion_tpu_torch.config import Config
+from difashion_tpu_torch.core import distributed
+from difashion_tpu_torch.core.distributed import DistInfo
 from difashion_tpu_torch.core.logging import MetricLogger, StepTimer
 from difashion_tpu_torch.data.datasets import FashionData, HistLatentStore, TrainLoader
 from difashion_tpu_torch.data.precompute import load_processed
 from difashion_tpu_torch.data.prompts import build_train_prompts
 from difashion_tpu_torch.data.tokenizer import load_tokenizer
 from difashion_tpu_torch.engine.train import TrainBatch, TrainState, autocast, build_train_step
-from difashion_tpu_torch.models.difashion import FROZEN, create_difashion
+from difashion_tpu_torch.models.difashion import FROZEN, TRAINABLE, create_difashion
 
 
 def require_pil(what: str) -> None:
@@ -56,15 +66,21 @@ def require_pil(what: str) -> None:
                          "(extract-features --stage vae) and train from them") from e
 
 
-def resolve_dp_size(dp_size: int, log) -> int:
-    """The number of devices to train on: one, until the multi-GPU slice."""
-    if dp_size > 1:
-        raise SystemExit(f"dp_size {dp_size}: data-parallel training over several GPUs "
-                         "comes with the port's multi-GPU slice (core/distributed.py, "
-                         "DDP and ZeRO-1); train with dp_size 1 or -1")
+def resolve_dp_size(dp_size: int, world: int, train_batch_size: int, log) -> int:
+    """The number of ranks to train on: the process group's size, which
+    `dp_size` (when above 0) must equal, and which must divide the global
+    batch (the JAX command picks the largest divisor instead)."""
+    if dp_size > 0 and dp_size != world:
+        raise SystemExit(
+            f"dp_size {dp_size} needs a process group of {dp_size} ranks, one per device "
+            f"(this run has {world}): launch `torchrun --nproc_per_node {dp_size} -m "
+            f"difashion_tpu_torch train --dp_size {dp_size} ...`")
+    if train_batch_size % world:
+        raise SystemExit(f"train_batch_size {train_batch_size} outfits do not split over "
+                         f"{world} ranks: use a multiple of {world}")
     if dp_size <= 0:
-        log.info("dp_size %d: training on one device", dp_size)
-    return 1
+        log.info("dp_size %d: training on the group's %d device(s)", dp_size, world)
+    return world
 
 
 def assemble_batch(batch: dict, moments_mean: Optional[np.ndarray],
@@ -137,15 +153,19 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
                  tokenizer, pretrained_dir: Optional[str] = None,
                  max_steps: Optional[int] = None, log_dir: Optional[str] = None,
                  image_loader=None, report_to: tuple = ("tensorboard",),
-                 validation_every: int = 0, validation_batches: int = 1, device="cuda"):
+                 validation_every: int = 0, validation_batches: int = 1, device="cuda",
+                 dp: Optional[DistInfo] = None):
     """The training loop as a library function (the CLI and the tests share
     it). Returns (state, model): the final TrainState and the model whose
-    parameters it holds."""
+    parameters it holds. `dp`: this rank of a data-parallel group
+    (`initialize_distributed`), whose device it trains on."""
     log = setup_logging()
     tcfg = cfg.train
     max_steps = max_steps or tcfg.max_train_steps
-    device = torch.device(device)
-    n_devices = resolve_dp_size(tcfg.dp_size, log)
+    dp = dp or distributed.single(device)
+    device = dp.device
+    writer = dp.rank == 0
+    n_devices = resolve_dp_size(tcfg.dp_size, dp.world, tcfg.train_batch_size, log)
     if validation_every > 0 and data.fitb_valid is not None:
         require_pil("--validation_steps (the validation samples are JPEGs)")
 
@@ -156,12 +176,12 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
 
         import_sd_checkpoint(pretrained_dir, model)
         log.info("imported pretrained SD weights from %s", pretrained_dir)
-    step_fn, init_state = build_train_step(model, tcfg)
+    step_fn, init_state = build_train_step(model, tcfg, dp=dp)
     state = init_state()
-    log.info("training on %s (%d device)", device, n_devices)
+    log.info("training on %s (rank %d of %d)", device, dp.rank, n_devices)
 
     store = CheckpointStore(tcfg.output_dir, tcfg.checkpoints_total_limit)
-    if not store.has_frozen():
+    if writer and not store.has_frozen():
         store.save_frozen({t: getattr(model, t).state_dict() for t in FROZEN})
     start_step = 0
     if tcfg.resume_from_checkpoint:
@@ -180,6 +200,7 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
                 cfg.model.mutual.latent_channels, cfg.model.mutual.latent_size))
             start_step = state.step
             log.info("resumed from checkpoint at step %d", start_step)
+    distributed.check_same_parameters(model, TRAINABLE + FROZEN, dp.world)
 
     # per-category token-id table (the prompts depend on the category only)
     cids = (sorted(data.id_cate_dict.keys()) if data.id_cate_dict
@@ -194,12 +215,14 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
             torch.from_numpy(np.asarray(tokenizer([""]))).long().to(device))[0].float()
 
     loader = TrainLoader(data.train, tcfg.train_batch_size, seed=tcfg.seed, shuffle=True)
-    metrics_log = MetricLogger(
-        log_dir or tcfg.output_dir, report_to=report_to,
-        run_config={"learning_rate": tcfg.learning_rate,
-                    "train_batch_size": tcfg.train_batch_size,
-                    "max_train_steps": max_steps, "eta": tcfg.eta,
-                    "snr_gamma": tcfg.snr_gamma})
+    metrics_log = None
+    if writer:
+        metrics_log = MetricLogger(
+            log_dir or tcfg.output_dir, report_to=report_to,
+            run_config={"learning_rate": tcfg.learning_rate,
+                        "train_batch_size": tcfg.train_batch_size,
+                        "max_train_steps": max_steps, "eta": tcfg.eta,
+                        "snr_gamma": tcfg.snr_gamma})
     timer = StepTimer(n_chips=n_devices)
     sf = cfg.model.vae.scaling_factor
 
@@ -247,22 +270,25 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
                     "sampling disabled")
         validation_every = 0
 
+    # the same generator on every rank: each draws the global batch's
+    # randomness and keeps its rows
     generator = torch.Generator(device=device).manual_seed(tcfg.seed)
     step = synced = start_step
-    sync_every = max(1, metrics_log.console_every)
-    imgs_per_step = tcfg.train_batch_size * data.train.outfits.shape[1]
-    crop_rng = np.random.RandomState(tcfg.seed + 1)
+    sync_every = max(1, metrics_log.console_every) if writer else 1
+    imgs_per_step = tcfg.train_batch_size * data.train.outfits.shape[1]   # global batch
+    crop_rng = np.random.RandomState(tcfg.seed + 1 + dp.rank)
     timer.start()
     try:
         while step < max_steps:
-            batch = assemble_batch(loader.batch_at(step), moments_mean, moments_logvar,
+            shard = distributed.host_shard(loader.batch_at(step), dp.rank, dp.world)
+            batch = assemble_batch(shard, moments_mean, moments_logvar,
                                    ids_table, cid_row, hist_store, sf,
                                    image_loader=image_loader, np_rng=crop_rng, device=device)
             state, m = step_fn(state, batch, null_latent, null_text, generator)
             step += 1
             # sync with the device only to log: the step's own sync (the
             # non-finite check) is the only other one
-            if step % sync_every == 0 or step >= max_steps:
+            if writer and (step % sync_every == 0 or step >= max_steps):
                 loss = float(m["loss"])
                 t = timer.stop(imgs_per_step * (step - synced))
                 synced = step
@@ -270,16 +296,22 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
                                 update_skipped=float(m["update_skipped"]), **t)
                 timer.start()
             if step % tcfg.checkpointing_steps == 0 or step >= max_steps:
-                store.save_async(state, step)
-                log.info("saved checkpoint-%d (async)", step)
+                if writer:
+                    store.save_async(state, step)
+                    log.info("saved checkpoint-%d (async)", step)
+                distributed.barrier()
             if validation_every > 0 and step % validation_every == 0:
-                run_validation(state, step)
+                if writer:
+                    run_validation(state, step)
+                distributed.barrier()
                 timer.start()   # the validation's wall time is not a step's
     finally:
         # a checkpoint announced is written (or its failure raised) and the
         # metrics flushed, whatever stopped the loop
         store.wait()
-        metrics_log.close()
+        if metrics_log is not None:
+            metrics_log.close()
+    distributed.barrier()
     return state, model
 
 
@@ -317,8 +349,22 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Returns run_training's (state, model)."""
+    """Returns run_training's (state, model). Under torchrun (WORLD_SIZE > 1)
+    this process joins the group first: NCCL on the cards, gloo with
+    `--device cpu`."""
     args = parse_args(argv)
+    if distributed.world_size() == 1:
+        return _main(args, None)
+    backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"
+    dp = distributed.initialize_distributed(backend, args.device)
+    try:
+        return _main(args, dp)
+    finally:
+        distributed.destroy()
+
+
+def _main(args, dp: Optional[DistInfo]):
+    device = dp.device if dp is not None else args.device
     cfg = load_config(args.config, args.tiny)
     overrides = {k: getattr(args, k) for k in ("max_train_steps", "learning_rate",
                                                "train_batch_size", "eta", "snr_gamma",
@@ -334,29 +380,33 @@ def main(argv=None):
 
     proc = load_processed(args.data_path, "all_item_moments")
     if proc is None:
-        # first run: precompute the catalog's moments
+        # first run: precompute the catalog's moments (rank 0; the others wait)
         if image_paths is None or args.img_folder_path is None:
             raise SystemExit(
                 "catalog moments not found; either pass --img_folder_path + "
                 "--image_paths_npy so training can precompute them on first run, or run "
                 "`python -m difashion_tpu_torch extract-features --stage vae`")
         require_pil("the first-run precompute of the catalog moments")
-        from difashion_tpu_torch.cli.extract_features import make_item_loader
-        from difashion_tpu_torch.data.precompute import encode_catalog, save_processed
+        if dp is None or dp.rank == 0:
+            from difashion_tpu_torch.cli.extract_features import make_item_loader
+            from difashion_tpu_torch.data.precompute import encode_catalog, save_processed
 
-        log.info("catalog moments cache missing: VAE-encoding %d items first",
-                 len(image_paths))
-        model = create_difashion(cfg.model, seed=0, device=args.device)
-        if args.pretrained_dir:
-            from difashion_tpu_torch.core.importer import import_sd_checkpoint
+            log.info("catalog moments cache missing: VAE-encoding %d items first",
+                     len(image_paths))
+            model = create_difashion(cfg.model, seed=0, device=device)
+            if args.pretrained_dir:
+                from difashion_tpu_torch.core.importer import import_sd_checkpoint
 
-            import_sd_checkpoint(args.pretrained_dir, model)
-        item_loader = make_item_loader(args.img_folder_path, image_paths,
-                                       cfg.model.vae.sample_size)
-        proc = encode_catalog(model, item_loader, len(image_paths), device=args.device)
-        del model
-        save_processed(args.data_path, "all_item_moments", **proc)
-        log.info("saved processed/all_item_moments.npz")
+                import_sd_checkpoint(args.pretrained_dir, model)
+            item_loader = make_item_loader(args.img_folder_path, image_paths,
+                                           cfg.model.vae.sample_size)
+            proc = encode_catalog(model, item_loader, len(image_paths), device=device)
+            del model
+            save_processed(args.data_path, "all_item_moments", **proc)
+            log.info("saved processed/all_item_moments.npz")
+        distributed.barrier()
+        if proc is None:
+            proc = load_processed(args.data_path, "all_item_moments")
 
     moments_mean, moments_logvar = proc["mean"], proc["logvar"]
     hist_store = HistLatentStore.from_catalog(data.history.get("train", {}),
@@ -383,7 +433,7 @@ def main(argv=None):
     return run_training(cfg, data, moments_mean, moments_logvar, hist_store, tokenizer,
                         pretrained_dir=args.pretrained_dir, image_loader=image_loader,
                         report_to=report_to, validation_every=args.validation_steps,
-                        validation_batches=args.validation_batches, device=args.device)
+                        validation_batches=args.validation_batches, device=device, dp=dp)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,15 @@ moves to NCHW once on the way in and back once on the way out. Latents, the
 scheduler and the guidance combine stay in fp32; the UNet, the MutualEncoder
 and the VAE run in their own dtype. Every scheduler's plan rows are host
 numbers, so the loop never waits on the device.
+
+Sharded generation (the counterpart of `shard_generation_inputs` on a
+mesh): each rank samples its contiguous share of the fills and outfits
+(`shard_generation_inputs`, after `pad_generation_inputs`), and the sampler
+(`sample(..., dp=...)`) all-gathers the latents at every step to form the
+mutual condition, which reads an outfit's other slots wherever they live,
+then keeps this rank's rows: the collective that XLA inserts in the JAX
+package. The caller gathers the rows (`core/distributed.py::gather_rows`)
+and slices off the padding.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from difashion_tpu_torch.core.distributed import DistInfo, gather_rows
 from difashion_tpu_torch.diffusion.ddim import ddim_step, make_ddim_plan
 from difashion_tpu_torch.diffusion.dpmpp import dpmpp_init_state, dpmpp_step, make_dpmpp_plan
 from difashion_tpu_torch.diffusion.pndm import make_pndm_plan, pndm_init_state, pndm_step
@@ -129,15 +139,20 @@ class GenerationInputs(NamedTuple):
 def build_sampler(model: DiFashion, *, num_inference_steps: int,
                   spec: GuidanceSpec, eta: float, scheduler: str = "pndm",
                   ddim_eta: float = 0.0, return_trajectory: bool = False) -> Callable:
-    """A function (inputs, generator=None, step_noise=None) -> final latents
-    [F, h, w, C] (fp32, NHWC). With `return_trajectory=True` it returns
-    (final latents, trajectory [L, F, h, w, C]), the latents after every
-    scheduler iteration.
+    """A function (inputs, generator=None, step_noise=None, dp=None) ->
+    final latents [F, h, w, C] (fp32, NHWC). With `return_trajectory=True`
+    it returns (final latents, trajectory [L, F, h, w, C]), the latents
+    after every scheduler iteration.
 
     `scheduler`: "pndm", "ddim" (with `ddim_eta`) or "dpmpp". DDIM with
     ddim_eta > 0 adds noise at every step: pass `step_noise` [L, F, h, w, C]
     (NHWC, as the JAX sampler draws it from its rng) or a `torch.Generator`
-    on the latents' device to draw it from; without either it raises."""
+    on the latents' device to draw it from; without either it raises.
+
+    `dp` (a group of several ranks): `inputs` is this rank's share from
+    `shard_generation_inputs` and the result its rows. The step noise is
+    the global batch's ([L, F * world, ...], given or drawn alike on every
+    rank), of which each rank keeps its rows."""
     sched = model.schedule
     if scheduler == "pndm":
         plan = make_pndm_plan(sched, num_inference_steps)
@@ -154,9 +169,16 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
 
     @torch.inference_mode()
     def sample(inputs: GenerationInputs, generator: Optional[torch.Generator] = None,
-               step_noise: Optional[torch.Tensor] = None):
+               step_noise: Optional[torch.Tensor] = None, dp: Optional[DistInfo] = None):
         dev = inputs.init_latents.device
         f32 = torch.float32
+        world = dp.world if dp is not None else 1
+        F = int(inputs.init_latents.shape[0])
+        mine = slice(dp.rank * F, (dp.rank + 1) * F) if world > 1 else slice(None)
+        # the mutual gather's per-outfit arrays and fill -> outfit map, whole
+        outfit_idx = gather_rows(inputs.outfit_idx, world)
+        gen_index = gather_rows(inputs.gen_index, world)
+        gen_mask = gather_rows(inputs.gen_mask.to(torch.uint8), world).bool()  # gloo: no bool
 
         def sel(a, ndim):
             return torch.as_tensor(a, dtype=f32, device=dev).view((-1,) + (1,) * ndim)
@@ -168,7 +190,7 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
         latents = inputs.init_latents.to(f32).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
         F, C, h, w = latents.shape
-        known = inputs.known_latents.to(f32).permute(0, 1, 4, 2, 3)
+        known = gather_rows(inputs.known_latents.to(f32), world).permute(0, 1, 4, 2, 3)
         null_lat = inputs.null_latent.to(f32).permute(2, 0, 1)[None, None]
         hist = inputs.hist_latents.to(f32).permute(0, 3, 1, 2)
 
@@ -176,9 +198,9 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
             if step_noise is None:
                 if generator is None:
                     raise ValueError("ddim_eta > 0 requires a generator or the step noise")
-                step_noise = torch.randn((len(rows),) + tuple(inputs.init_latents.shape),
-                                         generator=generator, device=dev)
-            step_noise = step_noise.to(device=dev, dtype=f32).permute(0, 1, 4, 2, 3)
+                step_noise = torch.randn((len(rows), F * world) + tuple(
+                    inputs.init_latents.shape[1:]), generator=generator, device=dev)
+            step_noise = step_noise[:, mine].to(device=dev, dtype=f32).permute(0, 1, 4, 2, 3)
 
         # branch-constant inputs, built once
         hist_flat = (hist_sel * hist[None] + (1.0 - hist_sel) * null_lat
@@ -192,8 +214,8 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
         traj = []
         for i, row in enumerate(rows):
             mutual = model.apply_mutual(mutual_condition_input(
-                latents, inputs.outfit_idx, known, inputs.gen_mask,
-                inputs.gen_index)).to(f32)
+                gather_rows(latents, world), outfit_idx, known, gen_mask,
+                gen_index)[mine]).to(f32)
             mut_b = mut_sel * mutual[None] + (1.0 - mut_sel) * null_lat
             x = (1.0 - eta) * latents[None] + eta * mut_b      # [nb, F, C, h, w]
             x = torch.cat([x.reshape(nb * F, C, h, w), hist_flat], dim=1)
@@ -245,6 +267,27 @@ def pad_generation_inputs(inputs: GenerationInputs, n: int) -> GenerationInputs:
         gen_mask=pad(inputs.gen_mask, Bp),
         gen_index=pad(inputs.gen_index, Bp),
     )
+
+
+def shard_generation_inputs(inputs: GenerationInputs, rank: int,
+                            world: int) -> GenerationInputs:
+    """This rank's share of the generation inputs for `sample(..., dp=...)`:
+    the fills and the outfits padded to multiples of `world`
+    (`pad_generation_inputs`), then the rank's contiguous slice of each
+    (outfits are contiguous in the fill list, so a GOR outfit's slots stay
+    on one rank; a mixed FITB batch's may not, which the sampler's gather
+    covers). The conditions shared by every fill stay whole. The gathered
+    output's rows past the original F are padding."""
+    inputs = pad_generation_inputs(inputs, world)
+    nf = int(inputs.init_latents.shape[0]) // world
+    nb = int(inputs.gen_mask.shape[0]) // world
+    fill = lambda x: x[rank * nf:(rank + 1) * nf]
+    outfit = lambda x: x[rank * nb:(rank + 1) * nb]
+    return inputs._replace(
+        init_latents=fill(inputs.init_latents), outfit_idx=fill(inputs.outfit_idx),
+        hist_latents=fill(inputs.hist_latents), cate_text=fill(inputs.cate_text),
+        known_latents=outfit(inputs.known_latents), gen_mask=outfit(inputs.gen_mask),
+        gen_index=outfit(inputs.gen_index))
 
 
 @torch.inference_mode()

@@ -12,29 +12,19 @@ counts its int32 counters, 4 bytes each).
 
 Two schemes: every device holds the whole state (data parallel), or the
 moments and the EMA are sharded over the devices (ZeRO-1) by
-`zero1_shard_axis`, the rule the multi-GPU placement will share.
+`zero1_shard_axis`, the rule of the ZeRO-1 state itself
+(`engine/train.py::Zero1`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List
 
 import torch
 
 from difashion_tpu_torch.engine.optim8bit import Adam8bitState
-from difashion_tpu_torch.engine.train import AdamState, TrainState, build_train_step
+from difashion_tpu_torch.engine.train import (AdamState, TrainState, build_train_step,
+                                              zero1_shard_axis)
 from difashion_tpu_torch.models.difashion import FROZEN, DiFashion
-
-
-def zero1_shard_axis(shape: Sequence[int], ndev: int) -> Optional[int]:
-    """The ZeRO-1 sharding rule: the largest dimension divisible by the
-    number of devices, or None when the tensor stays whole on every device
-    (a scalar, an empty tensor, no divisible dimension)."""
-    if not shape or 0 in shape:
-        return None
-    divisible = [(d, ax) for ax, d in enumerate(shape) if d % ndev == 0]
-    if not divisible:
-        return None
-    return max(divisible)[1]
 
 
 def _bytes(tensors: Iterable[torch.Tensor]) -> int:

@@ -1,7 +1,6 @@
 """Training engine: the DiFashion loss and the train step. Counterpart of
 `difashion_tpu/engine/train.py` (the loss, the optimizer chain, EMA, gradient
-accumulation and the skip of non-finite updates; meshes, sharding and ZeRO-1
-come with the multi-GPU slice).
+accumulation, the skip of non-finite updates, data parallelism and ZeRO-1).
 
 One step: the loss of each microbatch under bf16 autocast (fp32 master
 weights, as the JAX package keeps fp32 params under a bf16 compute dtype),
@@ -17,9 +16,25 @@ sync per step, after the backward (the decision is `isfinite(grad_norm)`).
 
 The batch keeps the JAX package's layout (NHWC latents); the loss moves to
 NCHW once. Randomness comes from an explicit `torch.Generator` on the step's
-device, drawn in a fixed order; the tests hold the algorithm against the JAX
-package with injected draws (`injected`), since the two generators cannot
-give the same numbers.
+device, drawn in a fixed order (`loss_draws`); the tests hold the algorithm
+against the JAX package with injected draws (`injected`, the same draws in
+its layout), since the two generators cannot give the same numbers.
+
+Data parallelism (`build_train_step(..., dp=...)`, the counterpart of
+`shard_train_step`): each rank holds its contiguous shard of the global
+batch. Every rank seeds the same generator and draws the step's randomness
+for the *global* batch, keeping its own rows, so a row's draws depend on its
+place in the global batch only: a step over W ranks computes the function
+of the one-process step over the global batch. The gradients are averaged
+across ranks once per step, after the last microbatch's backward
+(`core/distributed.py::all_reduce_mean_`), so the clip, the non-finite skip,
+AdamW and EMA see the global gradient and every rank decides alike.
+
+ZeRO-1 (`zero1=True`, the counterpart of `place_state_zero1`): AdamW's
+moments and the EMA of each parameter hold only this rank's slice along
+`zero1_shard_axis`; each rank updates its slice of the parameter and of the
+EMA, and the slices are all-gathered back into the full parameters.
+`gather_zero1_state` rebuilds the whole state on one rank for checkpoints.
 """
 from __future__ import annotations
 
@@ -28,8 +43,11 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from difashion_tpu_torch.config import TrainConfig
+from difashion_tpu_torch.core import distributed
+from difashion_tpu_torch.core.distributed import DistInfo
 from difashion_tpu_torch.engine.optim8bit import AdamW8bit
 from difashion_tpu_torch.models.difashion import DiFashion
 
@@ -59,6 +77,81 @@ class AdamState:
     nu: List[torch.Tensor]
 
 
+def zero1_shard_axis(shape: Sequence[int], ndev: int) -> Optional[int]:
+    """The ZeRO-1 sharding rule (`Zero1` and `engine/memory.py`'s accounting
+    share it): the largest dimension divisible by the number of devices, or
+    None when the tensor stays whole on every device (a scalar, an empty
+    tensor, no divisible dimension)."""
+    if not shape or 0 in shape:
+        return None
+    divisible = [(d, ax) for ax, d in enumerate(shape) if d % ndev == 0]
+    if not divisible:
+        return None
+    return max(divisible)[1]
+
+
+class Zero1(NamedTuple):
+    """Which slice of each trainable parameter this rank's moments and EMA
+    hold: `axes[i]` is parameter i's `zero1_shard_axis` (None: held whole by
+    every rank), the slice the rank-th of `world` equal parts along it."""
+
+    rank: int
+    world: int
+    axes: List[Optional[int]]
+
+    @staticmethod
+    def plan(params: Sequence[torch.Tensor], rank: int, world: int) -> "Zero1":
+        return Zero1(rank, world, [zero1_shard_axis(tuple(p.shape), world) for p in params])
+
+    def part(self, t: torch.Tensor, i: int, rank: Optional[int] = None) -> torch.Tensor:
+        """The view of `t` (parameter i's shape) that rank `rank` (this one
+        by default) holds."""
+        ax = self.axes[i]
+        if ax is None:
+            return t
+        n = t.shape[ax] // self.world
+        return t.narrow(ax, (self.rank if rank is None else rank) * n, n)
+
+    def parts(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [self.part(t, i) for i, t in enumerate(tensors)]
+
+    def sharded(self) -> List[int]:
+        return [i for i, ax in enumerate(self.axes) if ax is not None]
+
+    @torch.no_grad()
+    def collect_(self, full: Optional[Sequence[torch.Tensor]],
+                 local: Optional[Sequence[torch.Tensor]] = None,
+                 dst: Optional[int] = None) -> None:
+        """Fill each rank's slice of every sharded tensor of `full` from the
+        rank that holds it. This rank's slices are `local[i]`, or its own
+        slices of `full` (then kept in place). Flat buckets are exchanged
+        and copied into place (the sharded axis is often not axis 0: conv
+        kernels are OIHW): on every rank (all-gather) when `dst` is None,
+        else on rank `dst` only (gather; `full` may be None elsewhere)."""
+        idx = self.sharded()
+        mine = list(local) if local is not None else self.parts(full)
+        for bucket in distributed.buckets([mine[i] for i in idx]):
+            ids = [idx[b] for b in bucket]
+            flat = torch.cat([mine[i].reshape(-1) for i in ids])
+            got = None
+            if dst is None or self.rank == dst:
+                got = [torch.empty_like(flat) for _ in range(self.world)]
+            if dst is None:
+                dist.all_gather(got, flat)
+            else:
+                dist.gather(flat, got, dst=dst)
+            if got is None:
+                continue
+            for q in range(self.world):
+                if local is None and q == self.rank:
+                    continue
+                off = 0
+                for i in ids:
+                    part = self.part(full[i], i, q)
+                    part.copy_(got[q][off:off + part.numel()].view(part.shape))
+                    off += part.numel()
+
+
 @dataclass
 class TrainState:
     names: List[str]             # "unet.<key>" / "fashion_encoder.<key>"
@@ -66,6 +159,7 @@ class TrainState:
     opt_state: object            # AdamState or Adam8bitState
     ema: Optional[EMAState]
     step: int = 0                # train steps taken, skipped or not
+    zero1: Optional[Zero1] = None   # set: the moments and EMA hold this rank's slices
 
 
 def ema_decay_schedule(step: int, max_decay: float) -> float:
@@ -109,7 +203,8 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     """The learning rate for the count of updates applied so far, per
     `cfg.lr_scheduler`; with `scale_lr`, times accumulation x batch x world
     size (the reference's rule; the world is cfg.dp_size when set, else the
-    one device of this slice)."""
+    process group's size: `jax.device_count()` in the JAX package, which
+    is the same under one process per device)."""
     if cfg.lr_scheduler == "constant":
         base = lambda count: cfg.learning_rate
     elif cfg.lr_scheduler == "constant_with_warmup":
@@ -121,7 +216,7 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
         raise ValueError(f"unknown lr scheduler {cfg.lr_scheduler!r}")
     if not cfg.scale_lr:
         return base
-    world = cfg.dp_size if cfg.dp_size > 0 else 1
+    world = cfg.dp_size if cfg.dp_size > 0 else distributed.world_size()
     factor = cfg.gradient_accumulation_steps * cfg.train_batch_size * world
     return lambda count: base(count) * factor
 
@@ -213,57 +308,95 @@ def _rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return _nchw(x.reshape((n,) + tuple(x.shape[2:]))).float()
 
 
+def latent_shape(model: DiFashion, batch: TrainBatch) -> Tuple[int, int, int]:
+    """(C, h, w) of the batch's latents: the moments' own, or the VAE's
+    encoding of its images."""
+    if batch.latent_mean is not None:
+        h, w, c = batch.latent_mean.shape[2:]
+        return c, h, w
+    H, W = batch.images.shape[2:4]
+    vae = model.config.vae
+    return vae.latent_channels, H // vae.scale_factor, W // vae.scale_factor
+
+
+def batch_shape(batch: TrainBatch) -> Tuple[int, int]:
+    """(B outfits, olen items)."""
+    x = batch.latent_mean if batch.latent_mean is not None else batch.images
+    return int(x.shape[0]), int(x.shape[1])
+
+
+def loss_draws(model: DiFashion, cfg: TrainConfig, generator: Optional[torch.Generator],
+               n_outfits: int, olen: int, shape: Tuple[int, int, int],
+               device) -> Dict[str, torch.Tensor]:
+    """The stochastic draws of one loss over n_outfits x olen items, in the
+    loss's order: the VAE posterior's eps and the noise ([n, C, h, w], the
+    noise with its offset term), one timestep per outfit, the
+    MutualEncoder's dropout uniforms ([n, hid], where its dropout acts), the
+    condition- and prompt-dropout uniforms ([n]). Each tensor's leading axis
+    is the batch position (items; outfits for `t_outfit`), so `draws_rows`
+    gives any rows' draws."""
+    n = n_outfits * olen
+    normal = lambda s: torch.randn(s, generator=generator, device=device)
+    uniform = lambda s: torch.rand(s, generator=generator, device=device)
+    c = shape[0]
+    d = {"enc_eps": normal((n,) + tuple(shape)), "noise": normal((n,) + tuple(shape))}
+    if cfg.noise_offset:
+        d["noise"] = d["noise"] + cfg.noise_offset * normal((n, c, 1, 1))
+    d["t_outfit"] = torch.randint(0, model.schedule.num_train_timesteps, (n_outfits,),
+                                  generator=generator, device=device)
+    if cfg.use_mutual_guidance and model.fashion_encoder.dropout_active():
+        d["dropout_u"] = uniform((n, model.config.mutual.hid_dim))
+    d["p_mask"] = uniform(n)
+    d["p_cate"] = uniform(n)
+    return d
+
+
+def draws_rows(draws: Dict[str, torch.Tensor], start: int, stop: int,
+               olen: int) -> Dict[str, torch.Tensor]:
+    """The draws of outfits [start, stop)."""
+    return {k: v[start:stop] if k == "t_outfit" else v[start * olen:stop * olen]
+            for k, v in draws.items()}
+
+
 def difashion_loss(model: DiFashion, batch: TrainBatch, null_latent: torch.Tensor,
                    null_text: torch.Tensor, generator: Optional[torch.Generator],
                    cfg: TrainConfig,
-                   injected: Optional[Dict[str, torch.Tensor]] = None
+                   injected: Optional[Dict[str, torch.Tensor]] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The DiFashion training loss. null_latent [h, w, C] is the scaled latent
     of the white null image, null_text [77, D] the encoded empty prompt.
 
-    `injected` (tests) overrides the stochastic draws so the JAX package can be
-    driven with the same randomness: `enc_eps` [n, h, w, C], `noise`
-    [n, h, w, C], `t_outfit` [B], `p_mask` [n], `p_cate` [n]. When set, the
-    MutualEncoder's dropout is off (its draw has no counterpart in JAX)."""
-    injected = injected or None
-    inj = injected or {}
+    Its randomness is `draws` (`loss_draws`' dict for this batch's rows), or
+    drawn from `generator` by `loss_draws`. `injected` (tests) gives the
+    draws in the JAX package's layout, so that package can be driven with
+    the same randomness: `enc_eps` [n, h, w, C], `noise` [n, h, w, C],
+    `t_outfit` [B], `p_mask` [n], `p_cate` [n]; it has no MutualEncoder
+    dropout draw (none has a counterpart in JAX), and the MutualEncoder's
+    dropout acts only where the draws hold `dropout_u`."""
     sched = model.schedule
-    dev = null_latent.device
-    normal = lambda shape: torch.randn(shape, generator=generator, device=dev)
-    uniform = lambda n: torch.rand(n, generator=generator, device=dev)
+    B, olen = batch_shape(batch)
+    n = B * olen
+    if injected:
+        draws = {k: _nchw(v).float() if k in ("enc_eps", "noise") else v
+                 for k, v in injected.items()}
+    d = draws if draws is not None else loss_draws(
+        model, cfg, generator, B, olen, latent_shape(model, batch), null_latent.device)
 
     # ---- latents ----------------------------------------------------------
     if batch.latent_mean is not None:
-        B, olen = batch.latent_mean.shape[:2]
-        n = B * olen
         mean = _rows(batch.latent_mean, n)
         std = torch.exp(0.5 * torch.clamp(_rows(batch.latent_logvar, n), -30.0, 20.0))
-        enc_eps = inj.get("enc_eps")
-        enc_eps = normal(mean.shape) if enc_eps is None else _nchw(enc_eps).float()
-        latents = (mean + std * enc_eps) * model.config.vae.scaling_factor
+        latents = (mean + std * d["enc_eps"]) * model.config.vae.scaling_factor
     else:
-        if inj:
-            raise ValueError("injected draws need the latent-moments batch")
-        B, olen = batch.images.shape[:2]
-        n = B * olen
         with torch.no_grad():
             latents = model.encode_images(_rows(batch.images, n), sample=True,
-                                          generator=generator)
+                                          eps=d["enc_eps"])
     latents = latents.float()
 
     # ---- noise and one timestep per outfit ---------------------------------
-    noise = inj.get("noise")
-    if noise is None:
-        noise = normal(latents.shape)
-        if cfg.noise_offset:
-            noise = noise + cfg.noise_offset * normal((n, latents.shape[1], 1, 1))
-    else:
-        noise = _nchw(noise).float()
-    t_outfit = inj.get("t_outfit")
-    if t_outfit is None:
-        t_outfit = torch.randint(0, sched.num_train_timesteps, (B,), generator=generator,
-                                 device=dev)
-    timesteps = t_outfit.long().repeat_interleave(olen)
+    noise = d["noise"]
+    timesteps = d["t_outfit"].long().repeat_interleave(olen)
     noisy = sched.add_noise(latents, noise, timesteps)
 
     # ---- mutual condition: the mean over each item's co-items --------------
@@ -271,15 +404,14 @@ def difashion_loss(model: DiFashion, batch: TrainBatch, null_latent: torch.Tenso
     if cfg.use_mutual_guidance:
         grp = noisy.reshape((B, olen) + tuple(noisy.shape[1:]))
         mutual_in = ((grp.sum(1, keepdim=True) - grp) / (olen - 1)).reshape(noisy.shape)
-        mutual = model.apply_mutual(mutual_in, generator=generator,
-                                    deterministic=injected is not None).float()
+        mutual = model.apply_mutual(mutual_in, deterministic="dropout_u" not in d,
+                                    dropout_u=d.get("dropout_u")).float()
     else:
         mutual = null_b
     hist = _rows(batch.hist_latents, n) if cfg.use_history else null_b
 
     # ---- joint condition-dropout windows -----------------------------------
-    p = inj.get("p_mask")
-    p = uniform(n) if p is None else p.float()
+    p = d["p_mask"].float()
     rows = lambda m: m.reshape(n, 1, 1, 1)
     if cfg.use_history and cfg.use_mutual_guidance:
         hist_mask = p < (cfg.mask_ratio + cfg.coupling_mask_ratio)
@@ -294,8 +426,7 @@ def difashion_loss(model: DiFashion, batch: TrainBatch, null_latent: torch.Tenso
 
     # ---- text with prompt dropout -------------------------------------------
     text = model.encode_text(batch.input_ids.reshape(n, -1).long()).float()
-    p2 = inj.get("p_cate")
-    p2 = uniform(n) if p2 is None else p2.float()
+    p2 = d["p_cate"].float()
     text = torch.where((p2 < cfg.cate_mask_ratio).reshape(n, 1, 1),
                        null_text[None].float(), text)
 
@@ -327,24 +458,31 @@ def autocast(model: DiFashion, cfg: TrainConfig):
 def apply_gradients(state: TrainState, grads: List[torch.Tensor], optimizer,
                     cfg: TrainConfig) -> Dict[str, object]:
     """Clip, optimizer update and EMA, given the step's gradients (one per
-    parameter of `state.params`). A non-finite gradient norm skips the update
+    parameter of `state.params`; under data parallelism the global mean,
+    the same on every rank). A non-finite gradient norm skips the update
     (parameters and optimizer state hold) when cfg.skip_nonfinite_updates;
     EMA moves towards the (held) parameters either way and counts applied
-    updates only. Returns grad_norm (before clipping) and update_skipped."""
+    updates only. With a ZeRO-1 state each rank updates its slices of the
+    parameters and the EMA, then the parameters are all-gathered. Returns
+    grad_norm (before clipping) and update_skipped."""
+    z = state.zero1
     grad_norm = global_norm(grads)
     ok = True
     if cfg.skip_nonfinite_updates:
         ok = bool(torch.isfinite(grad_norm))         # the step's one host sync
+    params = state.params if z is None else z.parts(state.params)
     if ok:
         clip_by_global_norm_(grads, grad_norm, cfg.max_grad_norm)
-        optimizer.update_(state.params, grads, state.opt_state)
+        optimizer.update_(params, grads if z is None else z.parts(grads), state.opt_state)
     if state.ema is not None:
         with torch.no_grad():
             d = ema_decay_schedule(state.ema.step, cfg.ema_decay)
             torch._foreach_mul_(state.ema.params, d)
-            torch._foreach_add_(state.ema.params, list(state.params),
+            torch._foreach_add_(state.ema.params, list(params),
                                 alpha=float(np.float32(1) - np.float32(d)))
         state.ema.step += int(ok)
+    if ok and z is not None:
+        z.collect_(state.params)
     state.step += 1
     return {"grad_norm": grad_norm, "update_skipped": 0.0 if ok else 1.0}
 
@@ -358,59 +496,127 @@ def _split(batch: TrainBatch, k: int) -> List[TrainBatch]:
 def accumulate_gradients(model: DiFashion, params: Sequence[torch.Tensor],
                          batch: TrainBatch, null_latent: torch.Tensor,
                          null_text: torch.Tensor, generator: Optional[torch.Generator],
-                         cfg: TrainConfig
+                         cfg: TrainConfig, dp: Optional[DistInfo] = None
                          ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """The step's gradient of `params` and the loss of each microbatch. With
     k = gradient_accumulation_steps > 1 the batch is split into k
-    microbatches along its outfits, each drawing fresh randomness from
-    `generator`, and the gradient is the mean of theirs. Gradients go through
-    `.grad` (cleared first); a parameter the loss does not reach gets zeros."""
+    microbatches along its outfits, each with fresh draws, and the gradient
+    is the mean of theirs. Gradients go through `.grad` (cleared first); a
+    parameter the loss does not reach gets zeros.
+
+    The draws are those of the one-process step over the global batch
+    (`dp.world` ranks' batches in rank order): k microbatches of the global
+    batch drawn in turn from `generator`, of which this rank keeps the rows
+    of its batch (`dp.rank`-th). Under `dp` the gradient is then averaged
+    across the ranks, once (the losses stay this rank's)."""
     k = cfg.gradient_accumulation_steps
+    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+    B, olen = batch_shape(batch)
+    if B % k:
+        raise ValueError(f"{B} outfits a rank do not split into {k} microbatches")
+    shape, dev = latent_shape(model, batch), null_latent.device
+    global_mb = B * world // k
+    per_mb = [loss_draws(model, cfg, generator, global_mb, olen, shape, dev)
+              for _ in range(k)]
+    draws = draws_rows({key: torch.cat([d[key] for d in per_mb]) for key in per_mb[0]},
+                       rank * B, (rank + 1) * B, olen)
     for p in params:
         p.grad = None
     losses = []
-    for mb in _split(batch, k) if k > 1 else [batch]:
+    for i, mb in enumerate(_split(batch, k) if k > 1 else [batch]):
         with autocast(model, cfg):
-            loss, _ = difashion_loss(model, mb, null_latent, null_text, generator, cfg)
+            loss, _ = difashion_loss(model, mb, null_latent, null_text, generator, cfg,
+                                     draws=draws_rows(draws, i * B // k, (i + 1) * B // k,
+                                                      olen))
         loss.backward()
         losses.append(loss.detach())
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     if k > 1:
         torch._foreach_div_(grads, float(k))
+    distributed.all_reduce_mean_(grads, world)
     return grads, losses
 
 
-def build_train_step(model: DiFashion, cfg: TrainConfig):
+def build_train_step(model: DiFashion, cfg: TrainConfig, dp: Optional[DistInfo] = None,
+                     zero1: bool = False):
     """Returns (train_step, init_state).
 
     init_state() splits the model into trainable and frozen towers, sets the
     UNet's gradient checkpointing from cfg, and returns a fresh TrainState
     (optimizer state and, with use_ema or use_ema_fashion, an EMA copy of the
-    trainable parameters).
+    trainable parameters; with `zero1` over a group of several ranks, only
+    this rank's slices of both).
 
     train_step(state, batch, null_latent, null_text, generator) takes one
     step in place (`accumulate_gradients`, then `apply_gradients`) and
-    returns (state, metrics): loss (mean over the microbatches), grad_norm
-    and update_skipped."""
+    returns (state, metrics): loss (mean over the microbatches, and over the
+    ranks under `dp`), grad_norm and update_skipped.
+
+    `dp` (from `core/distributed.py::initialize_distributed`): the step is
+    this rank's share of a data-parallel step over the group; `batch` is the
+    rank's shard of the global batch and every rank passes a generator in
+    the same state. 8-bit AdamW's blocks run over flattened parameters, not
+    along an axis: it does not take `zero1`."""
     optimizer = make_optimizer(cfg)
+    world = dp.world if dp is not None else 1
+    if zero1 and cfg.use_8bit_adam:
+        raise ValueError("ZeRO-1 shards AdamW's moments along a parameter axis; 8-bit "
+                         "AdamW's int8 blocks run over the flattened parameter: train it "
+                         "data-parallel without zero1")
 
     def init_state() -> TrainState:
         model.prepare_for_training()
         model.unet.set_gradient_checkpointing(cfg.gradient_checkpointing, cfg.remat_policy)
         named = model.trainable_parameters()
         params = [p for _, p in named]
+        z = Zero1.plan(params, dp.rank, world) if zero1 and world > 1 else None
+        held = [t.detach() for t in (z.parts(params) if z is not None else params)]
         ema = None
         if cfg.use_ema or cfg.use_ema_fashion:
-            ema = EMAState(params=[p.detach().clone() for p in params], step=0)
+            ema = EMAState(params=[t.clone() for t in held], step=0)
         return TrainState(names=[name for name, _ in named], params=params,
-                          opt_state=optimizer.init(params), ema=ema)
+                          opt_state=optimizer.init(held), ema=ema, zero1=z)
 
     def train_step(state: TrainState, batch: TrainBatch, null_latent: torch.Tensor,
                    null_text: torch.Tensor, generator: Optional[torch.Generator]):
         grads, losses = accumulate_gradients(model, state.params, batch, null_latent,
-                                             null_text, generator, cfg)
+                                             null_text, generator, cfg, dp)
         metrics = apply_gradients(state, grads, optimizer, cfg)
-        metrics["loss"] = torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        distributed.all_reduce_mean_([loss], world)
+        metrics["loss"] = loss
         return state, metrics
 
     return train_step, init_state
+
+
+def gather_zero1_state(state: TrainState) -> Optional[TrainState]:
+    """A ZeRO-1 state made whole on rank 0, the rank that writes checkpoints
+    (every rank calls it): the moments and the EMA gathered from their
+    slices into full tensors beside the (already full) parameters, so that a
+    checkpoint keeps the files of a data-parallel run. Returns the whole
+    state on rank 0, None elsewhere; a state that is not sharded is returned
+    as it is."""
+    z = state.zero1
+    if z is None:
+        return state
+    dst = 0
+
+    def whole(local):
+        full = [torch.empty_like(p.detach()) for p in state.params] if z.rank == dst else None
+        z.collect_(full, local=local, dst=dst)
+        if full is not None:
+            for i, ax in enumerate(z.axes):
+                if ax is None:
+                    full[i] = local[i]
+        return full
+
+    opt = state.opt_state
+    mu, nu = whole(opt.mu), whole(opt.nu)
+    ema = whole(state.ema.params) if state.ema is not None else None
+    if z.rank != dst:
+        return None
+    return TrainState(names=state.names, params=state.params,
+                      opt_state=AdamState(count=opt.count, mu=mu, nu=nu),
+                      ema=EMAState(ema, state.ema.step) if state.ema is not None else None,
+                      step=state.step)

@@ -63,11 +63,13 @@ class DiFashion(nn.Module):
         return self.unet(sample, timesteps, encoder_hidden_states)
 
     def encode_images(self, images: torch.Tensor, sample: bool = False,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """images [B, 3, H, W] in [-1, 1] -> scaled latents [B, C, h, w].
-        `sample=True` draws from the posterior, otherwise its mode."""
+        `sample=True` draws from the posterior (its standard normal `eps`
+        [B, C, h, w], or drawn from `generator`), otherwise its mode."""
         dist = self.vae.encode(images)
-        z = dist.sample(generator) if sample else dist.mode()
+        z = dist.sample(generator, eps) if sample else dist.mode()
         return z * self.config.vae.scaling_factor
 
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
@@ -79,10 +81,12 @@ class DiFashion(nn.Module):
 
     def apply_mutual(self, mutual_emb: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
-                     deterministic: Optional[bool] = None) -> torch.Tensor:
+                     deterministic: Optional[bool] = None,
+                     dropout_u: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The MutualEncoder; its dropout acts in training mode unless
-        `deterministic`, with its mask drawn from `generator`."""
-        return self.fashion_encoder(mutual_emb, generator, deterministic)
+        `deterministic`, with its mask from `dropout_u` or drawn from
+        `generator`."""
+        return self.fashion_encoder(mutual_emb, generator, deterministic, dropout_u)
 
 
 def _residual_branch_outputs(tower: nn.Module):

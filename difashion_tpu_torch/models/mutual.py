@@ -33,19 +33,28 @@ class MutualEncoder(nn.Module):
             nn.Tanh(),
         )
 
-    def forward(self, mutual_emb: torch.Tensor,
-                generator: Optional[torch.Generator] = None,
-                deterministic: Optional[bool] = None) -> torch.Tensor:
-        """mutual_emb [B, C, h, w] -> [B, C, h, w] in [-1, 1]. Dropout acts
-        unless `deterministic` (default: not in training mode); its keep mask
-        is drawn from `generator` (torch's default generator when None)."""
+    def dropout_active(self, deterministic: Optional[bool] = None) -> bool:
+        """Whether the dropout acts: unless `deterministic` (default: not
+        in training mode), and only at a rate above 0."""
         if deterministic is None:
             deterministic = not self.training
+        return not deterministic and self.mlp[2].p > 0
+
+    def forward(self, mutual_emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                deterministic: Optional[bool] = None,
+                dropout_u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mutual_emb [B, C, h, w] -> [B, C, h, w] in [-1, 1]. Dropout acts
+        as `dropout_active` says; a unit is kept where its uniform draw is at
+        least the rate: `dropout_u` [B, hid_dim], or drawn from `generator`
+        (torch's default generator when None)."""
         lin0, act, drop, lin1, tanh = self.mlp
         b = mutual_emb.shape[0]
         x = act(lin0(mutual_emb.to(lin0.weight.dtype).reshape(b, -1)))
-        if not deterministic and drop.p > 0:
+        if self.dropout_active(deterministic):
             # flax's Dropout: keep with probability 1 - p, scale kept values by 1/(1-p)
-            keep = torch.rand(x.shape, generator=generator, device=x.device) >= drop.p
+            if dropout_u is None:
+                dropout_u = torch.rand(x.shape, generator=generator, device=x.device)
+            keep = dropout_u >= drop.p
             x = torch.where(keep, x / (1.0 - drop.p), torch.zeros_like(x))
         return tanh(lin1(x)).reshape(mutual_emb.shape)

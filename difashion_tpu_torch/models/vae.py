@@ -30,10 +30,13 @@ class DiagonalGaussian(NamedTuple):
     mean: torch.Tensor
     logvar: torch.Tensor
 
-    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise: `noise` given, or drawn from `generator`."""
         std = torch.exp(0.5 * self.logvar.clamp(-30.0, 20.0))
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            device=self.mean.device, dtype=self.mean.dtype)
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                device=self.mean.device, dtype=self.mean.dtype)
         return self.mean + std * noise
 
     def mode(self) -> torch.Tensor:

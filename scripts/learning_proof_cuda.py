@@ -160,8 +160,8 @@ class LaunchProbe:
                 return out
             return run
 
-        def build_train_step(model, cfg):
-            step, init = build(model, cfg)
+        def build_train_step(model, cfg, **kw):
+            step, init = build(model, cfg, **kw)
 
             def run(state, *args):
                 at = state.step

@@ -465,7 +465,7 @@ def test_train_cli_precomputes_from_pngs_then_trains_from_images(tmp_path):
 def test_train_cli_refuses_several_gpus_and_missing_pil(tmp_path, monkeypatch):
     data = write_dataset(tmp_path / "data")
     cfg = write_config(tmp_path / "cfg.json", dp_size=2)
-    with pytest.raises(SystemExit, match="multi-GPU slice"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
         _run(data, str(tmp_path / "a"), "--config", cfg, "--max_train_steps", "1")
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(SystemExit, match="--from_images needs PIL"):
