@@ -54,7 +54,14 @@ line each:
      and without a bias, TFLOP/s, the bound's share, the plain version's
      time, the library's (torch.matmul, and F.linear with the bias;
      yardsticks only) and the bound; and the wrapper's host microseconds per
-     call beside F.linear's and torch.matmul's;
+     call beside F.linear's and torch.matmul's; then the fp32 kernel
+     (3xTF32) at every distinct fp32 product of the sampler's UNet, the
+     train step's (forward and dx) and the VAE decode, in the path's layout,
+     with a bias and without one: against its plain 3xTF32 version and both
+     against fp64 (the library's fp32 distance beside), its time with and
+     without a bias, the plain versions' (fp32 and 3xTF32), the library's
+     (fp32, TF32 off), the 3xTF32 and SIMT bounds and their shares, and the
+     wrapper's host microseconds per call;
   4. reference: the whole generation path at the tiny config on the card
      (fp16) against the port's CPU fp32 run of the same weights and inputs,
      with each scheduler: PNDM, DDIM (eta 0, and eta 0.5 with the same step
@@ -68,6 +75,12 @@ line each:
      GroupNorms and 4 products in the decode);
   7. profile: the CUDA kernels of one UNet forward by device time, with the
      layout (NCHW <-> NHWC) and copy buckets on their own;
+  7x. main_path_fp32: the main path's GOR on the sd2_base model in fp32 (the
+     generate command's model for mixed_precision other than "bf16"),
+     MAIN_PATH_FP32_STEPS-step PNDM and the decode, through the kernels
+     (the fp32 flash forward, the fp32 skinny-N kernel, GroupNorm; exact
+     launches) and through the plain versions (no launch): latents and
+     images against each other, seconds per outfit and peak memory;
   7a. serve: `GenerationPipeline` + `GenerationService(max_batch=4)` at the
      sd2_base widths, DPM-Solver++ at 20 steps, 4-branch CFG: a GOR request
      (1 outfit padded to 16 fills, 64 UNet rows), a FITB request (3 outfits
@@ -98,7 +111,8 @@ line each:
      bytes, and 2 rows against the same tower on the CPU in fp32;
   7e. extract_clip: `extract-features --stage all --device cuda` over those
      256 items at the sd2_base widths: the VAE stage's files and launches
-     (the precompute's per batch), the CLIP features bit for bit against a
+     (the precompute's per batch; the VAE runs in fp32, so its gated Dense
+     products on the fp32 skinny-N kernel), the CLIP features bit for bit against a
      direct `Extractors.clip_image_embs`, the history means, and seconds per
      1000 items per stage split into the loader's and the rest;
   7f. evaluate_parity: the parity command (generate -> evaluate with the
@@ -127,7 +141,8 @@ line each:
      kernels, against the CPU in fp32 (the CPU's own bf16 run beside);
   9a. fp32_reference: the tiny path in fp32 (mixed_precision other than
      "bf16"): PNDM generation with the decode, and the training loss and
-     gradients, every attention on the fp32 kernels, against the CPU in fp32;
+     gradients, every attention on the fp32 kernels, against the CPU in fp32
+     (its Dense products are under the skinny-N gate's 2048 rows: no launch);
  10. unet_grad: one full-width UNet forward and backward at batch 4 in bf16
      autocast, attention through the kernels against the plain versions, on
      the gradient of every parameter, both against an fp32 run;
@@ -146,9 +161,11 @@ line each:
      mixed_precision="no" (fp32 throughout, the path the JAX package's
      train command builds for any precision but bf16), 8 rows, after one
      warm-up step: seconds by CUDA events, peak memory, launches (the fp32
-     forward, dQ and dK/dV kernels under every attention), and one profiled
-     step's device time with the fp32 forward's share and the fp32 dQ and
-     dK/dV kernels';
+     forward, dQ and dK/dV kernels under every attention, the fp32 skinny-N
+     kernel under every gated Dense, forward and dx), and one profiled
+     step's device time with the fp32 forward's share, the fp32 dQ and
+     dK/dV kernels', the fp32 skinny-N kernel's, the convolutions' and the
+     library matmuls';
  14. train_cli: the train command (`cli/train.py::main --device cuda`) at
      the sd2_base widths with the recipe on a synthetic 64-outfit dataset:
      3 steps and checkpoint-3 (~14 GB, in a temporary directory deleted at
@@ -184,7 +201,8 @@ line each:
      (F32_REF_TOL) and in bf16 (no farther from the fp32 run than VS_PLAIN x
      the unsharded bf16 run); per rank its launches (a step's the
      one-process step's at its local batch, a sampler forward's the main
-     path's, or in fp32 its fp32 flash and GroupNorm launches), seconds per
+     path's, or in fp32 its fp32 flash, GroupNorm and fp32 skinny-N
+     launches), seconds per
      step, the all-reduce and all-gather ms and the peak memory.
 
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
@@ -221,6 +239,14 @@ LSE_TOL = 1e-3
 # backward gradient within 2e-5 relative L2 (sums of up to 4096 terms: about
 # sqrt(4096) * 3 * 2^-22 = 5e-6, with margin)
 F32_TOL = 2e-5
+# the fp32 skinny-N kernel vs its plain 3xTF32 version: the same split
+# products (lo*hi + hi*lo + hi*hi of each operand pair), summed in another
+# order (32-deep chunks added to the running sums in the kernel, three whole
+# products in the plain version): fp32 rounding of the sums only, a few
+# 2^-24 of the result, so 2e-6 relative L2. Against an fp64 product both
+# drop lo*lo (about 2^-22 of a product): the kernel may be no farther from it
+# than VS_PLAIN times the plain version.
+F32_MM_TOL = 2e-6
 # the tiny path in fp32 on the card vs the CPU's fp32 run: the same
 # arithmetic in fp32 (TF32 off for matmuls and convolutions) with sums in
 # another order, through 20 guided steps at CFG scale 12 (latents), and the
@@ -265,6 +291,11 @@ PRECOMPUTE_ITEMS = 200     # 3 batches of 64 and a ragged one of 8
 CFG_SCALES = (12.0, 4.0, 5.0)
 STEPS = 50
 ETA = 0.1
+# the fp32 main path's PNDM steps (phase main_path_fp32): the bf16 main
+# path's 50, as an fp32 UNet forward at 16 rows takes about 0.30 s through
+# the kernels and 0.48 s through the plain versions on an H100
+# (scripts/skinny_matmul_f32.py --unet): both runs in under a minute
+MAIN_PATH_FP32_STEPS = STEPS
 
 
 def emit(obj):
@@ -959,12 +990,16 @@ DENSE_PATHS = (  # (path, what runs, batch): every gated Dense product of these 
     ("train_encode", "encode", TRAIN_ROWS))
 MM_TIMED = ("sampler_unet", "serve_unet", "train_unet", "train_unet_dx", "vae_decode",
             "serve_decode", "vae_encode", "encode_ragged")
+# the fp32 kernel's timed paths: an fp32 model's sampler forward, train step
+# (forward and dx) and decode
+MM_F32_TIMED = ("sampler_unet", "train_unet", "train_unet_dx", "vae_decode")
 
 
-def dense_sites(cfg, paths=DENSE_PATHS):
+def dense_sites(cfg, paths=DENSE_PATHS, dtype=None):
     """{path: [(M, K, N, bias) of each gated Dense call]} for `paths`,
     from forwards of the sd2_base towers on the meta device (shapes only) and
-    the bf16 gate of `nn/kernels/skinny_matmul.py`; "<path>_dx" for the
+    the gate of `nn/kernels/skinny_matmul.py` in `dtype` (bf16 by default);
+    "<path>_dx" for the
     train UNet's backward, whose dx = g . w is the product (M, N, K) with the
     weight read as [K, N] and no bias."""
     import torch
@@ -974,13 +1009,14 @@ def dense_sites(cfg, paths=DENSE_PATHS):
     from difashion_tpu_torch.nn.kernels.skinny_matmul import gate
     from difashion_tpu_torch.nn.layers import Dense
 
+    dtype = dtype or torch.bfloat16
     with torch.device("meta"):
         model = DiFashion(cfg)
     calls, path = {}, None
 
     def record(mod, args):
         m = math.prod(args[0].shape[:-1])
-        if gate(m, mod.out_features, mod.in_features, torch.bfloat16, torch.bfloat16):
+        if gate(m, mod.out_features, mod.in_features, dtype, dtype):
             calls[path].append((m, mod.in_features, mod.out_features, mod.bias is not None))
 
     hooks = [m.register_forward_pre_hook(record) for m in model.modules()
@@ -1005,14 +1041,24 @@ def dense_sites(cfg, paths=DENSE_PATHS):
     return calls
 
 
-def matmul_bound(m, k, n, bias=False):
+def matmul_bound(m, k, n, bias=False, size=2, rate=PEAK_BF16_FLOPS, passes=1):
     """(bound ms, 'operations' or 'bytes', ops, bytes): 2MKN operations (and
-    MN adds for a bias); x, w (and the bias) read once and o written once in
-    16 bits."""
+    MN adds for a bias), `passes` times over at `rate` (3xTF32: three TF32
+    products at the TF32 rate); x, w (and the bias) read once and o written
+    once in `size`-byte elements (2 for bf16 and fp16, 4 for fp32)."""
     ops = 2.0 * m * k * n + (m * n if bias else 0)
-    nbytes = 2.0 * (m * k + k * n + m * n + (n if bias else 0))
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    nbytes = size * (m * k + k * n + m * n + (n if bias else 0))
+    t_ops, t_bytes = passes * ops / rate, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def matmul_bounds_f32(m, k, n, bias=False):
+    """The fp32 kernel's bound (3xTF32: three times the operations at the
+    TF32 rate, 4-byte traffic) and, beside it, the SIMT one (the operations
+    once at the fp32 rate outside the tensor cores): (3xTF32 bound ms, what
+    bounds it, ops, bytes, SIMT bound ms)."""
+    bound = matmul_bound(m, k, n, bias, size=4, rate=PEAK_TF32_FLOPS, passes=3)
+    return (*bound, matmul_bound(m, k, n, bias, size=4, rate=PEAK_FP32_FLOPS)[0])
 
 
 def host_us_per_call(fn, calls=200):
@@ -1168,6 +1214,108 @@ def mm_path_totals(results, paths):
             tot["calls"] += calls
         out[path] = tot
     return out
+
+
+def phase_kernel_mm_f32(paths):
+    """The fp32 skinny-N kernel (3xTF32 on the tensor cores) at every distinct
+    routed product of MM_F32_TIMED, in the layout the path uses (dx reads
+    the stored weight as [K, N]), with and without a bias: against its plain
+    3xTF32 version (within F32_MM_TOL relative L2) and both against an fp64
+    product of the same inputs (the kernel no farther from it than VS_PLAIN
+    times the plain version; the library's fp32 distance beside). Per shape
+    the time with and without a bias, the plain versions'
+    (fp32, what `plain_versions()` runs; and 3xTF32), the library's
+    (torch.matmul, and F.linear with the bias, in fp32 with TF32 off;
+    yardsticks only), the 3xTF32 bound and the SIMT bound with the kernel's
+    share of each, TFLOP/s; then the wrapper's host microseconds per call
+    beside F.linear's."""
+    import torch
+    import torch.nn.functional as F
+
+    from difashion_tpu_torch.nn.kernels.skinny_matmul import (
+        skinny_matmul,
+        skinny_matmul_3xtf32_ref,
+        skinny_matmul_ref,
+    )
+    from difashion_tpu_torch.nn.layers import Dense
+
+    rel64 = lambda a, b: ((a.double() - b).norm() / b.norm()).item()
+    shapes = {}
+    for path in MM_F32_TIMED:
+        for m, k, n, bias in paths[path]:
+            per = shapes.setdefault((m, k, n, path.endswith("_dx")),
+                                    {"calls": {}, "bias_calls": {}})
+            per["calls"][path] = per["calls"].get(path, 0) + 1
+            per["bias_calls"][path] = per["bias_calls"].get(path, 0) + bias
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    results = []
+    for (m, k, n, w_kn), per in shapes.items():
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        # the path's layout: [K, N] for dx (the stored weight as it lies)
+        w = torch.randn(*((k, n) if w_kn else (n, k)), generator=gen, device="cuda") / k ** 0.5
+        b = torch.randn(n, generator=gen, device="cuda")
+        wt = w if w_kn else w.t()
+        row = {"phase": "kernel_mm", "kernel": "skinny_matmul_f32", "dtype": "float32",
+               "mkn": [m, k, n], "w_kn": w_kn, **per, "checks": {}, "max_abs_err": 0.0}
+        ok = True
+        prod64 = x.double() @ wt.double()
+        for bias in (None, b):
+            o = skinny_matmul(x, w, bias, w_kn=w_kn)
+            torch.cuda.synchronize()
+            plain = skinny_matmul_3xtf32_ref(x, w, bias, w_kn=w_kn)
+            ref = prod64 if bias is None else prod64 + bias.double()
+            lib = torch.matmul(x, wt) if bias is None else torch.addmm(bias, x, wt)
+            check = {"rel_l2_vs_plain": rel64(o, plain.double()),
+                     "max_abs_err": (o - plain).abs().max().item(),
+                     "kernel_vs_fp64_rel_l2": rel64(o, ref),
+                     "plain_vs_fp64_rel_l2": rel64(plain, ref),
+                     "library_vs_fp64_rel_l2": rel64(lib, ref)}
+            check["ok"] = (bool(torch.isfinite(o).all())
+                           and check["rel_l2_vs_plain"] <= F32_MM_TOL
+                           and check["kernel_vs_fp64_rel_l2"]
+                           <= VS_PLAIN * check["plain_vs_fp64_rel_l2"])
+            ok &= check["ok"]
+            row["checks"]["bias" if bias is not None else "no_bias"] = check
+            row["max_abs_err"] = max(row["max_abs_err"], check["max_abs_err"])
+            del o, plain, ref, lib
+        del prod64
+        bound_ms, bound_by, ops, nbytes, simt_ms = matmul_bounds_f32(m, k, n)
+        row.update({
+            "ms": device_ms(lambda: skinny_matmul(x, w, w_kn=w_kn)),
+            "ms_bias": None if w_kn else device_ms(lambda: skinny_matmul(x, w, b)),
+            "plain_ms": device_ms(lambda: skinny_matmul_ref(x, w, w_kn=w_kn)),
+            "plain_3xtf32_ms": device_ms(lambda: skinny_matmul_3xtf32_ref(x, w, w_kn=w_kn),
+                                         reps=5, warmup=1),
+            "matmul_ms": device_ms(lambda: torch.matmul(x, wt)),
+            "linear_ms": None if w_kn else device_ms(lambda: F.linear(x, w, b)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "simt_bound_ms": simt_ms,
+            "bound_bias_ms": matmul_bounds_f32(m, k, n, bias=True)[0]})
+        row.update({"tflops": ops / row["ms"] / 1e9, "bound_share": bound_ms / row["ms"],
+                    "simt_share": simt_ms / row["ms"],
+                    "vs_library": row["matmul_ms"] / row["ms"], "ok": ok})
+        emit(row)
+        results.append(row)
+        del x, w, b, wt
+        torch.cuda.empty_cache()
+    # the wrapper's host cost at a biased product of the sampler UNet: the
+    # wrapper, a Dense module, beside F.linear and an nn.Linear module
+    x = torch.randn(4096, 1280, device="cuda")
+    dense = Dense(1280, 1280).to("cuda")
+    w, b = dense.weight.detach(), dense.bias.detach()
+    with torch.inference_mode():
+        host = {"mkn": [4096, 1280, 1280],
+                "skinny_matmul_us": host_us_per_call(lambda: skinny_matmul(x, w, b)),
+                "dense_module_us": host_us_per_call(lambda: dense(x)),
+                "linear_us": host_us_per_call(lambda: F.linear(x, w, b)),
+                "linear_module_us": host_us_per_call(
+                    lambda: torch.nn.Linear.forward(dense, x))}
+    emit({"phase": "kernel_mm", "kernel": "skinny_matmul_f32", "host_per_call": host,
+          "per_path": mm_path_totals(results, MM_F32_TIMED)})
+    del x, w, b, dense
+    bad = [(r["mkn"], r["w_kn"]) for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"skinny_matmul_f32 disagrees with its plain version at {bad}")
+    return results, host
 
 
 def phase_unet(model, mm_paths):
@@ -1541,10 +1689,10 @@ def phase_train_reference():
                              f"gradients {grad_rel} (CPU bf16 {floor}), launches {launches}")
 
 
-def run_main_path(model, seed=42):
-    """Text encoding, 50-step PNDM GOR sampling and the decode to uint8 of one
-    outfit (F = 4), inputs as bench.py builds them. Returns (images, final
-    latents, {phase: ms})."""
+def run_main_path(model, seed=42, steps=STEPS):
+    """Text encoding, `steps`-step PNDM GOR sampling (50 by default) and the
+    decode to uint8 of one outfit (F = 4), inputs as bench.py builds them.
+    Returns (images, final latents, {phase: ms})."""
     import torch
 
     from difashion_tpu_torch.engine.generate import (
@@ -1577,7 +1725,7 @@ def run_main_path(model, seed=42):
         null_text=null_text,
         null_latent=torch.zeros(s, s, C, device=dev),
     )
-    sampler = build_sampler(model, num_inference_steps=STEPS,
+    sampler = build_sampler(model, num_inference_steps=steps,
                             spec=make_guidance_spec(*CFG_SCALES), eta=ETA)
     ev[1].record()
     latents = sampler(inputs)
@@ -1627,6 +1775,71 @@ def phase_main_path(model, mm_paths):
                        "skinny_matmul": mm_expect})
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
+    return launches
+
+
+def phase_main_path_fp32(mm_paths):
+    """The main path in fp32: GOR as phase main_path runs it (1 outfit of 4
+    items, 4-branch CFG, eta 0.1, PNDM, the decode to uint8 at 512 px)
+    through `build_sampler` and `decode_to_uint8` on the sd2_base model in
+    fp32, as the generate command builds it for mixed_precision other than
+    "bf16", at MAIN_PATH_FP32_STEPS steps: once through the kernels (every
+    attention on the fp32 flash forward, every gated Dense, forward only, on
+    the fp32 skinny-N kernel, every GroupNorm on its kernel; exact launches)
+    and once through the plain versions (`kernels.plain_versions()`, no
+    launch). The two within F32_REF_TOL latents relative L2 and
+    REF_PIXEL_TOL mean uint8 levels; seconds per outfit (CUDA events, after
+    a 2-step warm-up) and peak memory of the kernel run. Returns its
+    launches."""
+    import torch
+
+    from difashion_tpu_torch.config import ModelConfig
+    from difashion_tpu_torch.models.difashion import create_difashion
+    from difashion_tpu_torch.nn import kernels
+
+    model = create_difashion(ModelConfig.sd2_base(), seed=0, device="cuda", dtype=torch.float32)
+    steps = MAIN_PATH_FP32_STEPS
+    run_main_path(model, seed=7, steps=2)          # warm-up: allocator, cuDNN plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    images, latents, ms = run_main_path(model, steps=steps)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with kernels.plain_versions():
+        kernels.reset_launches()
+        plain_images, plain_latents, plain_ms = run_main_path(model, steps=steps)
+        plain_launches = dict(kernels.LAUNCHES)
+    forwards = steps + 1
+    decoder = model.vae.decoder
+    # the decode's mid attention (one head of 512) is past the kernels' head
+    # dims: plain, as on the bf16 main path
+    want = all_counts({
+        "flash_attention_fwd_f32": forwards * 32,
+        "group_norm_silu": forwards * count_groupnorms(model.unet) + count_groupnorms(decoder),
+        "skinny_matmul_f32": forwards * len(mm_paths["sampler_unet"])
+        + len(mm_paths["vae_decode"])})
+    rel = rel_l2(latents, plain_latents)
+    pix = (images.int() - plain_images.int()).abs().float()
+    finite = bool(torch.isfinite(latents).all())
+    seconds = sum(ms.values()) / 1e3
+    emit({"phase": "main_path_fp32", "config": "sd2_base", "dtype": "float32",
+          "mode": "GOR", "outfits": 1, "items": 4, "steps": steps, "unet_forwards": forwards,
+          "cfg_branches": 4, "eta": ETA, "images_shape": list(images.shape),
+          "latents_finite": finite, "latents_rel_l2_vs_plain": rel,
+          "image_mean_abs_diff": pix.mean().item(), "image_max_abs_diff": pix.max().item(),
+          "seconds_per_outfit": seconds, **ms, "ms_per_unet_step": ms["sampler_ms"] / forwards,
+          "plain_seconds_per_outfit": sum(plain_ms.values()) / 1e3,
+          "plain_ms_per_unet_step": plain_ms["sampler_ms"] / forwards,
+          "peak_memory_bytes": peak, "launches": launches, "expected_launches": want,
+          "plain_launches": plain_launches})
+    del model
+    torch.cuda.empty_cache()
+    if not (finite and tuple(images.shape) == (4, 512, 512, 3) and rel <= F32_REF_TOL
+            and pix.mean().item() <= REF_PIXEL_TOL and launches == want
+            and not any(plain_launches.values())):
+        raise AssertionError(f"main_path_fp32: latents {rel}, images {pix.mean().item()}, "
+                             f"launches {launches} (expected {want}), plain {plain_launches}")
     return launches
 
 
@@ -1875,6 +2088,7 @@ PROFILE_CATEGORIES = [
     ("group_norm_silu", ("gn_cluster_kernel", "gn_partials_kernel", "gn_finalize_kernel",
                          "gn_apply_kernel")),
     ("skinny_matmul", ("skinny_matmul_kernel",)),
+    ("skinny_matmul_f32", ("skinny_matmul_f32_kernel",)),
     ("flash_attention_fwd", ("flash_fwd_kernel",)),
     ("flash_attention_dq", ("flash_dq_kernel",)),
     ("flash_attention_dkv", ("flash_dkv_kernel",)),
@@ -2256,15 +2470,18 @@ def phase_profile_train(model):
     torch.cuda.empty_cache()
 
 
-def phase_train_fp32(model):
+def phase_train_fp32(model, mm_paths):
     """One full-width train step in fp32: the sd2_base recipe with
     mixed_precision="no" (autocast off, fp32 throughout: what a model built
     for any precision but "bf16" trains with), 8 rows, through
     build_train_step. One warm-up step, then one step timed with CUDA events
     (its seconds, peak memory and launches: the fp32 forward, dQ and dK/dV
-    kernels under each of the 32 attentions, no 16-bit flash kernel), then
-    one step under torch.profiler: device time by kernel, the fp32 forward's
-    share of it and the fp32 dQ and dK/dV kernels'. Returns the numbers."""
+    kernels under each of the 32 attentions, the fp32 skinny-N kernel under
+    every gated Dense, forward and dx, every GroupNorm on its kernel, no
+    16-bit kernel), then one step under torch.profiler: device time by
+    kernel, the fp32 forward's share of it, the fp32 dQ and dK/dV kernels'
+    and the fp32 skinny-N kernel's, and the convolutions' and the library
+    matmuls'. Returns the numbers."""
     import torch
 
     from difashion_tpu_torch.config import TrainConfig
@@ -2295,11 +2512,14 @@ def phase_train_fp32(model):
     bwd_ms = sum(prof["by_category_ms"].get(k, 0.0)
                  for k in ("flash_attention_dq_f32", "flash_attention_dkv_f32"))
     fwd_ms = prof["by_category_ms"].get("flash_attention_fwd_f32", 0.0)
+    mm_ms = prof["by_category_ms"].get("skinny_matmul_f32", 0.0)
+    total = prof["device_kernel_ms"]
     out = {"seconds_per_step": ev[0].elapsed_time(ev[1]) / 1e3, "peak_memory_bytes": peak,
-           "fwd_f32_device_ms": fwd_ms,
-           "fwd_f32_share_of_device": fwd_ms / prof["device_kernel_ms"],
-           "dq_dkv_f32_device_ms": bwd_ms,
-           "dq_dkv_f32_share_of_device": bwd_ms / prof["device_kernel_ms"],
+           "fwd_f32_device_ms": fwd_ms, "fwd_f32_share_of_device": fwd_ms / total,
+           "dq_dkv_f32_device_ms": bwd_ms, "dq_dkv_f32_share_of_device": bwd_ms / total,
+           "skinny_f32_device_ms": mm_ms, "skinny_f32_share_of_device": mm_ms / total,
+           "convolution_device_ms": prof["by_category_ms"].get("convolution", 0.0),
+           "matmul_device_ms": prof["by_category_ms"].get("matmul", 0.0),
            "loss": float(m["loss"]), "update_skipped": float(m["update_skipped"])}
     emit({"phase": "train_fp32", "config": "sd2_base",
           "recipe": 'TrainConfig(mixed_precision="no")', "rows_per_step": TRAIN_ROWS,
@@ -2310,12 +2530,15 @@ def phase_train_fp32(model):
     for p in model.parameters():
         p.grad = None
     torch.cuda.empty_cache()
-    flash = {k: v for k, v in launches.items() if k.startswith("flash")}
-    want = {k: (32 if k.endswith("_f32") else 0) for k in flash}
-    if not (flash == want and math.isfinite(out["loss"]) and out["update_skipped"] == 0.0
-            and launches["group_norm_silu"] == count_groupnorms(model.unet)):
-        raise AssertionError(f"train_fp32: launches {launches}, loss {out['loss']}, "
-                             f"skipped {out['update_skipped']}")
+    # forward and dx of every gated product: 130 + 130 at 8 rows
+    want = all_counts({"flash_attention_fwd_f32": 32, "flash_attention_dq_f32": 32,
+                       "flash_attention_dkv_f32": 32,
+                       "group_norm_silu": count_groupnorms(model.unet),
+                       "skinny_matmul_f32": 2 * len(mm_paths["train_unet"])})
+    out["launches"] = launches
+    if not (launches == want and math.isfinite(out["loss"]) and out["update_skipped"] == 0.0):
+        raise AssertionError(f"train_fp32: launches {launches} (expected {want}), loss "
+                             f"{out['loss']}, skipped {out['update_skipped']}")
     return out
 
 
@@ -2912,13 +3135,13 @@ def phase_eval_towers():
     return rows
 
 
-def phase_extract_clip(img_dir, names, encode_per_batch):
+def phase_extract_clip(img_dir, names, encode_per_batch, encode_mm_per_batch):
     """`cli/extract_features.main([... --stage all --device cuda])` at the
     sd2_base widths (VAE stage at 512 px, batch 64; CLIP ViT-H/14 stage,
     batch 200; seeded random weights) over the NATIVE_ITEMS synthetic items
     and a history table: the files' shapes and finiteness, the VAE stage's
-    GroupNorm launches (the precompute phase's per batch; no skinny-N launch
-    in fp32), the
+    GroupNorm and gated Dense launches (the precompute phase's per batch,
+    the Dense products on the fp32 skinny-N kernel), the
     CLIP features bit for bit against a direct `Extractors.clip_image_embs`
     over the same images, and seconds per 1000 items by stage, each split
     into the host loader's and the rest (device and transfers), timed by
@@ -3005,10 +3228,11 @@ def phase_extract_clip(img_dir, names, encode_per_batch):
         del X
         torch.cuda.empty_cache()
     batches = -(-n // 64)
-    # the precompute phase's GroupNorm launches per batch; no skinny-N one:
-    # the command runs the VAE in fp32 (as the JAX command does), and the
-    # Dense gate sends only 16-bit products to that kernel (`dense_route`)
-    want = all_counts({"group_norm_silu": batches * encode_per_batch})
+    # the precompute phase's GroupNorm and gated Dense launches per batch
+    # (full batches of 64), the latter on the fp32 kernel: the command runs
+    # the VAE in fp32, as the JAX command does
+    want = all_counts({"group_norm_silu": batches * encode_per_batch,
+                       "skinny_matmul_f32": batches * encode_mm_per_batch})
     hist_ok = all(v.shape == (1024,) and np.isfinite(v).all()
                   for h in hists.values() for by in h.values() for v in by.values())
     row = {"phase": "extract_clip", "config": "sd2_base VAE + ViT-H/14", "items": n,
@@ -3912,7 +4136,8 @@ def phase_multi_gpu(main_fwd):
         for run, g in r["generation"].items():
             per = main_fwd if run.startswith("bfloat16") else all_counts(
                 {"flash_attention_fwd_f32": main_fwd["flash_attention_fwd"],
-                 "group_norm_silu": main_fwd["group_norm_silu"]})
+                 "group_norm_silu": main_fwd["group_norm_silu"],
+                 "skinny_matmul_f32": main_fwd["skinny_matmul"]})
             want_gen = {k: v * g["forwards"] for k, v in per.items()}
             if g["launches"] != want_gen or g["rows"] != 4:
                 problems.append(f"gloo rank {r['rank']} {run} sampler launches "
@@ -4019,11 +4244,53 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
             "precompute_launches": precompute_launches["skinny_matmul"]}
 
 
+def mm_f32_entry(mm32_results, mm32_host, main_fp32_launches, train_fp32, mm_paths):
+    """The fp32 skinny-N kernel's entry of the kernels line: numbers per fp32
+    sampler UNet forward (batch 16, each product with its bias or without)
+    with the SIMT bound beside the 3xTF32 one, per fp32 train step (forward
+    and dx at batch 8) and per call of every fp32 path; launches those of
+    the fp32 main path (`phase_main_path_fp32`), also per UNet forward and
+    per fp32 train step."""
+    totals = mm_path_totals(mm32_results, MM_F32_TIMED)
+    simt = {path: sum(r["simt_bound_ms"] * r["calls"].get(path, 0) for r in mm32_results)
+            for path in MM_F32_TIMED}
+    for path, tot in totals.items():
+        tot["simt_bound_ms"] = simt[path]
+    main = totals["sampler_unet"]
+    ops_bound = sum(r["bound_ms"] * r["calls"].get("sampler_unet", 0) for r in mm32_results
+                    if r["bound_by"] == "operations")
+    step = {k: totals["train_unet"][k] + totals["train_unet_dx"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "simt_bound_ms", "calls")}
+    return {"name": "skinny_matmul_f32", "route": "cuda",
+            "source": "difashion_tpu_torch/csrc/skinny_matmul_f32.cu",
+            "replaces": "tools/pallas_skinny_matmul.py:36",
+            "launches": main_fp32_launches["skinny_matmul_f32"],
+            "max_abs_err": max(r["max_abs_err"] for r in mm32_results),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "operations" if ops_bound >= main["bound_ms"] / 2 else "bytes",
+            "library_ms": main["library_ms"],
+            "library": "torch.matmul(x, w.t()) for the products without a bias, "
+                       "F.linear(x, w, b) for those with one, fp32 with TF32 off",
+            "share_of_bound": main["bound_ms"] / main["ms"],
+            "simt_bound_ms": main["simt_bound_ms"],
+            "per": f"one fp32 sampler UNet forward ({main['calls']} calls)",
+            "per_train_step": dict(step, share_of_bound=step["bound_ms"] / step["ms"]),
+            "per_path": totals, "host_per_call": mm32_host,
+            "main_path": "main_path_fp32: GOR in fp32, "
+                         f"{MAIN_PATH_FP32_STEPS}-step PNDM and the decode",
+            "per_unet_forward_launches": len(mm_paths["sampler_unet"]),
+            "train_fp32_step_launches": train_fp32["launches"]["skinny_matmul_f32"],
+            "train_fp32_device_ms": train_fp32["skinny_f32_device_ms"],
+            "train_fp32_share_of_device": train_fp32["skinny_f32_share_of_device"],
+            "max_rel_l2_vs_plain": max(c["rel_l2_vs_plain"] for r in mm32_results
+                                       for c in r["checks"].values())}
+
+
 def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                  precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                  f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
                  bwd_sd15_results, train_fp32, parity_launches, proof_launches,
-                 multi_launches):
+                 multi_launches, mm32_results, mm32_host, main_fp32_launches, mm_paths):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
@@ -4033,7 +4300,8 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
     beside, the forward's also per sd15 UNet forward in fp32 (d = 40 and
     80), the backward's with the full-width fp32 step's numbers
     (`phase_train_fp32`); the GroupNorm kernel's as `gn_entry` says, the
-    skinny-N kernel's as `mm_entry` says. Each entry also carries its
+    skinny-N kernel's as `mm_entry` says, the fp32 skinny-N kernel's as
+    `mm_f32_entry` says. Each entry also carries its
     launches in the parity phase's generate legs (their UNet forwards), in
     one train step and one sampler forward of the learning proof, and in the
     multi_gpu phase per rank (a data-parallel step of each leg, a ZeRO-1
@@ -4103,6 +4371,7 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
         gn_entry(gn_results, launches, train_launches, precompute_launches),
         mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
                  serve_launches),
+        mm_f32_entry(mm32_results, mm32_host, main_fp32_launches, train_fp32, mm_paths),
     ]
     for e in entries:
         e["parity_generate_unet_launches"] = parity_launches[e["name"]]
@@ -4140,7 +4409,12 @@ def main():
     phase_sd15_unet()
     gn_results = phase_kernel_gn(groupnorm_sites(cfg))
     mm_paths = dense_sites(cfg)
+    # the 8 MiB rule counts the weight in the compute dtype's bytes: an fp32
+    # model routes the same products
+    if dense_sites(cfg, dtype=torch.float32) != mm_paths:
+        raise AssertionError("the Dense gate routes other products in fp32 than in bf16")
     mm_results, mm_host = phase_kernel_mm(mm_paths)
+    mm32_results, mm32_host = phase_kernel_mm_f32(mm_paths)
     phase_reference()
     model = create_difashion(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     phase_unet(model, mm_paths)
@@ -4158,11 +4432,12 @@ def main():
     encode_gn = count_groupnorms(model.vae.encoder)
     del model
     torch.cuda.empty_cache()
+    main_fp32_launches = phase_main_path_fp32(mm_paths)
     with tempfile.TemporaryDirectory() as catalog:
         names = write_synthetic_catalog(catalog, NATIVE_ITEMS)
         phase_native_loader(catalog, names)
         phase_eval_towers()
-        feats = phase_extract_clip(catalog, names, encode_gn)
+        feats = phase_extract_clip(catalog, names, encode_gn, len(mm_paths["vae_encode"]))
         parity_launches = phase_evaluate_parity(catalog, names, feats, main_fwd)
     # the training path, after the generation path: a backward leaves buffers
     # of its own (the autograd thread's cuBLAS workspace) that would count in
@@ -4178,7 +4453,7 @@ def main():
     phase_unet_grad(model, mm_paths)
     train_launches, train_peak, train_seconds = phase_train(model, mm_paths)
     phase_profile_train(model)
-    train_fp32 = phase_train_fp32(model)
+    train_fp32 = phase_train_fp32(model, mm_paths)
     del model
     torch.cuda.empty_cache()
     live_state_bytes = phase_train_cli(train_launches, train_seconds)
@@ -4190,7 +4465,7 @@ def main():
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                       f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
                       bwd_sd15_results, train_fp32, parity_launches, proof_launches,
-                      multi_launches))
+                      multi_launches, mm32_results, mm32_host, main_fp32_launches, mm_paths))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

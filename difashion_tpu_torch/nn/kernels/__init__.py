@@ -7,8 +7,8 @@ keyed by the hash of the source and the headers) and loaded with `ctypes`. Nothi
 the package imports on machines without a GPU or a CUDA toolkit.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper has made (the fp32
-flash source's three kernels under names of their own, so that the 16-bit
-counts of a path stay exact). A run resets it with `reset_launches()` and
+flash source's three kernels and the fp32 skinny-N kernel under names of
+their own, so that the 16-bit counts of a path stay exact). A run resets it with `reset_launches()` and
 reads it afterwards to show which kernels a path went through.
 
 `plain_versions()` is the one switch between the kernels and their plain
@@ -35,10 +35,10 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-           "flash_attention_f32", "group_norm_silu", "skinny_matmul")
+           "flash_attention_f32", "group_norm_silu", "skinny_matmul", "skinny_matmul_f32")
 COUNTERS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
             "flash_attention_fwd_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32",
-            "group_norm_silu", "skinny_matmul")
+            "group_norm_silu", "skinny_matmul", "skinny_matmul_f32")
 LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -21,7 +21,7 @@ Ports of `difashion_tpu/nn/pallas/flash_attention.py`:
     `flash_attention_dkv_f32`. All three run on the tensor cores in 3xTF32
     (wgmma tf32 at head dims 33..64 with 16-byte rows, mma.sync tf32 at the
     others; the C side picks): each fp32 operand is split into a TF32 high
-    part and a TF32 remainder (`tf32_split`) and three products are summed,
+    part and a TF32 remainder (`tf32.tf32_split`) and three products are summed,
     which keeps fp32 accuracy, so unlike one TF32 pass it is not gated by
     `torch.backends.cuda.matmul.allow_tf32`; dK/dV splits the query range as
     the 16-bit kernel does (`dkv_splits`). No 16-bit rounding anywhere.
@@ -56,6 +56,7 @@ from typing import Optional, Tuple
 import torch
 
 from difashion_tpu_torch.nn import kernels
+from difashion_tpu_torch.nn.kernels.tf32 import mm_3xtf32
 
 NAME = "flash_attention_fwd"
 DQ_NAME = "flash_attention_dq"
@@ -179,39 +180,6 @@ def _dscores(p, do, v, delta, mm=torch.matmul):
     return dp.sub_(delta.reshape(b, h, sq, 1)).mul_(p)
 
 
-_TF32_DROPPED = 0x1FFF          # the 13 low mantissa bits fp32 has and TF32 has not
-_FP32_EXPONENT = 0x7F800000
-
-
-def _tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """fp32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
-    zero, as `cvt.rna.tf32.f32` does: half a TF32 unit added to the
-    magnitude's bits, then the low 13 bits cleared (a carry moves into the
-    exponent; subnormals round alike). Inf and NaN pass through."""
-    bits = x.contiguous().view(torch.int32)
-    rounded = (bits + 0x1000) & ~_TF32_DROPPED
-    special = (bits & _FP32_EXPONENT) == _FP32_EXPONENT
-    return torch.where(special, bits, rounded).view(torch.float32)
-
-
-def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) of fp32 x as the fp32 kernels split an operand:
-    hi = x rounded to TF32, lo = (x - hi) rounded to TF32, so that
-    hi + lo = x to about 2^-22 of x (both exact in fp32). hi of an inf or a
-    NaN is itself; lo is then NaN (inf - inf), as in the kernels."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"tf32_split: fp32 input, got {x.dtype}")
-    hi = _tf32_round(x)
-    return hi, _tf32_round(x - hi)
-
-
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in fp32 from 3xTF32 operands, as the fp32 kernels form each
-    product: lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b); lo lo dropped."""
-    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
-    return torch.matmul(al, bh).add_(torch.matmul(ah, bl)).add_(torch.matmul(ah, bh))
-
-
 def _check_f32(name: str, tensors) -> None:
     for t in tensors:
         if t.dtype != torch.float32:
@@ -222,7 +190,7 @@ def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                scale: Optional[float] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fp32 forward as the fp32 forward kernels round it: S = Q K^T and
-    P V each a 3xTF32 product (`_mm_3xtf32`) of fp32 operands, the softmax
+    P V each a 3xTF32 product (`mm_3xtf32`) of fp32 operands, the softmax
     in fp32 between them, P unnormalised (exp(S - rowmax)) and O divided by
     the row sums after the product. Returns (o, lse) as `flash_attention_ref`
     does. For tests: the kernels' sums run in another order, and their
@@ -231,11 +199,11 @@ def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     b, h, sq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    s = _mm_3xtf32(q, k.transpose(-1, -2)).mul_(scale)
+    s = mm_3xtf32(q, k.transpose(-1, -2)).mul_(scale)
     mx = s.amax(-1, keepdim=True)
     p = s.sub_(mx).exp_()
     l = p.sum(-1, keepdim=True)
-    o = _mm_3xtf32(p, v).div_(l)
+    o = mm_3xtf32(p, v).div_(l)
     return o, (mx + l.log()).reshape(b * h, sq)
 
 
@@ -263,18 +231,18 @@ def flash_attention_dkv_ref(q, k, v, do, lse, delta, scale: float
 def flash_attention_bwd_3xtf32_ref(q, k, v, o, lse, do, scale: Optional[float] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fp32 backward as the fp32 dQ and dK/dV kernels round it: S, dP,
-    dQ, dK and dV each a 3xTF32 product (`_mm_3xtf32`) of fp32 operands, P
+    dQ, dK and dV each a 3xTF32 product (`mm_3xtf32`) of fp32 operands, P
     and dS in fp32 between them. For tests: the kernels' sums run in another
     order, and their P is exp2 of base-2 logits."""
     _check_f32("flash_attention_bwd_3xtf32_ref", (q, k, v, o, do))
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     delta = attention_delta(o, do)
-    p = _probs(q, k, lse, scale, _mm_3xtf32)
-    ds = _dscores(p, do, v, delta, _mm_3xtf32)
-    dq = _mm_3xtf32(ds, k).mul_(scale)
-    dk = _mm_3xtf32(ds.transpose(-1, -2), q).mul_(scale)
-    return dq, dk, _mm_3xtf32(p.transpose(-1, -2), do)
+    p = _probs(q, k, lse, scale, mm_3xtf32)
+    ds = _dscores(p, do, v, delta, mm_3xtf32)
+    dq = mm_3xtf32(ds, k).mul_(scale)
+    dk = mm_3xtf32(ds.transpose(-1, -2), q).mul_(scale)
+    return dq, dk, mm_3xtf32(p.transpose(-1, -2), do)
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: Optional[float] = None

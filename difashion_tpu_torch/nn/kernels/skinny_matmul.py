@@ -1,31 +1,39 @@
-"""Skinny-N matrix product: the CUDA kernel's wrapper, its plain version, the
-Dense layers' gate, and the autograd Function over both.
+"""Skinny-N matrix product: the CUDA kernels' wrappers, their plain versions,
+the Dense layers' gate, and the autograd Function over both.
 
 Port of `tools/pallas_skinny_matmul.py::_mm_kernel` (through `_mm_call`, the
-`_matmul` custom VJP, `matmul_2d` and `pallas_dense_dot`) ->
-`csrc/skinny_matmul.cu`: o = x . w^T (+ bias) for x [M, K] and a weight in
-`nn.Linear`'s [N, K] layout (or, with `w_kn=True`, one given as [K, N]),
-summed in fp32 and rounded once to x's dtype (bf16 or fp16); a bias is added
-to the rounded product and the sum rounded again, as flax's Dense adds its
-bias after the dot_general.
+`_matmul` custom VJP, `matmul_2d` and `pallas_dense_dot`): o = x . w^T
+(+ bias) for x [M, K] and a weight in `nn.Linear`'s [N, K] layout (or, with
+`w_kn=True`, one given as [K, N]), summed in fp32; a bias is added to the
+rounded product, as flax's Dense adds its bias after the dot_general.
+  * bf16 and fp16 -> `csrc/skinny_matmul.cu`: one fp32 sum rounded once to
+    x's dtype, the bias sum rounded again.
+  * fp32 -> `csrc/skinny_matmul_f32.cu`, counted as `skinny_matmul_f32`:
+    3xTF32 on the tensor cores (each operand split into a TF32 high part and
+    a TF32 remainder, three products summed; `tf32.mm_3xtf32`), which keeps
+    fp32 accuracy and so, like the fp32 flash kernels, is not gated by
+    `torch.backends.cuda.matmul.allow_tf32`.
 
 `dense_route` is the gate of `pallas_dense_dot`, with a CUDA tensor in place
 of `_on_tpu()`: a 2-D weight with N <= 1280 columns and at most 8 MiB in the
-compute dtype, x and the weight of one compute dtype, and M = the product of
-x's leading dimensions with M >= 2048 and M % 512 == 0. The compute dtype is
-autocast's where autocast is on (bf16 training over fp32 master weights), as
-flax's Dense computes in its `dtype`. One condition is the port's own: the
-kernel takes bf16 and fp16, so an fp32 product stays with `F.linear`.
+compute dtype, x and the weight of one compute dtype (bf16, fp16 or fp32),
+and M = the product of x's leading dimensions with M >= 2048 and
+M % 512 == 0. The compute dtype is autocast's where autocast is on (bf16
+training over fp32 master weights), as flax's Dense computes in its `dtype`.
 
-`skinny_matmul` launches the kernel for CUDA tensors and raises on what the
-kernel does not take; for CPU tensors it computes the plain version
-(`skinny_matmul_ref`), which the CPU tests hold against the JAX kernel in
-interpret mode. `tile_n` is the kernel's output tile width per N, chosen by
-measurement on the H100 (`scripts/skinny_matmul_tiles.py`). `SkinnyMatmul` is
-the counterpart of the `_matmul` custom VJP: the forward is the kernel, dx =
-g . w is the kernel again on the stored [N, K] weight read as [K, N] (no
-transposed copy), dw = g^T x is a plain product, as the JAX package leaves
-it to XLA, and db = g summed over rows.
+`skinny_matmul` launches the kernel of x's dtype for CUDA tensors and raises
+on what the kernels do not take; for CPU tensors it computes the plain
+version (`skinny_matmul_ref`, fp32 sums), which the CPU tests hold against
+the JAX kernel in interpret mode. `skinny_matmul_3xtf32_ref` is the fp32
+kernel's arithmetic in plain PyTorch (the split products): the tests and
+`chip_smoke.py` hold the fp32 kernel against it. `tile_n` is the 16-bit
+kernel's output tile width per N, chosen by measurement on the H100
+(`scripts/skinny_matmul_tiles.py`); the fp32 kernel's is 128 at every N,
+the widest whose two sets of fp32 accumulators fit a thread's registers.
+`SkinnyMatmul` is the counterpart of the `_matmul` custom VJP: the forward
+is the kernel, dx = g . w is the kernel again on the stored [N, K] weight
+read as [K, N] (no transposed copy), dw = g^T x is a plain product, as the
+JAX package leaves it to XLA, and db = g summed over rows.
 """
 from __future__ import annotations
 
@@ -36,14 +44,17 @@ from typing import Optional, Tuple
 import torch
 
 from difashion_tpu_torch.nn import kernels
+from difashion_tpu_torch.nn.kernels.tf32 import mm_3xtf32
 
 NAME = "skinny_matmul"
+NAME_F32 = "skinny_matmul_f32"         # the fp32 kernel's source, C entry and counter
 MAX_N = 1280
 MAX_W_BYTES = 8 * 1024 * 1024
 MIN_M = 2048
 M_MULTIPLE = 512
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-TILE_WIDTHS = (128, 160, 256)          # the widths the kernel is built for
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+TILE_WIDTHS = (128, 160, 256)          # the widths the 16-bit kernel is built for
 # Measured exceptions to `tile_n`'s rule (scripts/skinny_matmul_tiles.py on an
 # H100): for dx, w read as [K, N], a 160-wide tile reads three 64-column
 # chunks of w, and 128 wins at these N
@@ -71,6 +82,20 @@ def skinny_matmul_ref(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Ten
     return y
 
 
+def skinny_matmul_3xtf32_ref(x: torch.Tensor, w: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None, *,
+                             w_kn: bool = False) -> torch.Tensor:
+    """The fp32 kernel's arithmetic in plain PyTorch: x [M, K] times w [N, K]
+    transposed (w [K, N] with `w_kn`) as three fp32 products of TF32-split
+    operands (`mm_3xtf32`), and the bias added to the sum. fp32 only; for the
+    tests and `chip_smoke.py` (the kernel sums in another order)."""
+    for t in (x, w) if bias is None else (x, w, bias):
+        if t.dtype != torch.float32:
+            raise TypeError(f"skinny_matmul_3xtf32_ref: fp32 inputs, got {t.dtype}")
+    y = mm_3xtf32(x, w if w_kn else w.t())
+    return y if bias is None else y.add_(bias)
+
+
 def compute_dtypes(x: torch.Tensor, weight: torch.Tensor) -> Tuple[torch.dtype, torch.dtype]:
     """The dtypes in which a Dense multiplies x and its weight: autocast's for
     both where it is on for x's device, else their own."""
@@ -82,9 +107,9 @@ def compute_dtypes(x: torch.Tensor, weight: torch.Tensor) -> Tuple[torch.dtype, 
 
 def gate(rows: int, n: int, k: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> bool:
     """`pallas_dense_dot`'s conditions on a product of `rows` rows of x with
-    an [n, k] weight in these compute dtypes (and the kernel's dtypes)."""
+    an [n, k] weight in these compute dtypes: one dtype, a kernel's."""
     return (n <= MAX_N and n * k * w_dtype.itemsize <= MAX_W_BYTES and x_dtype == w_dtype
-            and x_dtype in _DTYPE_CODES and rows >= MIN_M and rows % M_MULTIPLE == 0)
+            and x_dtype in KERNEL_DTYPES and rows >= MIN_M and rows % M_MULTIPLE == 0)
 
 
 def dense_route(x: torch.Tensor, weight: torch.Tensor) -> bool:
@@ -100,9 +125,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], w_kn:
     if not (x.is_cuda and w.device == x.device
             and (bias is None or bias.device == x.device)):
         raise ValueError("skinny_matmul: x, w and the bias must lie on one CUDA device")
-    if (x.dtype not in _DTYPE_CODES or w.dtype != x.dtype
+    if (x.dtype not in KERNEL_DTYPES or w.dtype != x.dtype
             or (bias is not None and bias.dtype != x.dtype)):
-        raise TypeError(f"skinny_matmul: bf16 or fp16 x, w and bias of one dtype, got "
+        raise TypeError(f"skinny_matmul: bf16, fp16 or fp32 x, w and bias of one dtype, got "
                         f"{x.dtype}/{w.dtype}/{None if bias is None else bias.dtype}")
     k_axis = 0 if w_kn else 1
     if x.dim() != 2 or w.dim() != 2 or w.shape[k_axis] != x.shape[1]:
@@ -115,29 +140,42 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], w_kn:
     if bias is not None and (bias.shape != (n,) or not bias.is_contiguous()):
         raise ValueError(f"skinny_matmul: the bias must be a contiguous [{n}], got "
                          f"{tuple(bias.shape)}")
-    if k % 8 or x.stride(1) != 1 or x.stride(0) % 8 or x.data_ptr() % 16:
-        raise ValueError(f"skinny_matmul: x needs K % 8 == 0, unit stride along K, a row "
-                         f"stride that is a multiple of 8 and a 16-byte aligned base; got "
+    # rows read in 16-byte pieces: 8 values of 16 bits, 4 of fp32
+    vec = 16 // x.element_size()
+    if k % vec or x.stride(1) != 1 or x.stride(0) % vec or x.data_ptr() % 16:
+        raise ValueError(f"skinny_matmul: x needs K % {vec} == 0, unit stride along K, a row "
+                         f"stride that is a multiple of {vec} and a 16-byte aligned base; got "
                          f"{tuple(x.shape)} with strides {x.stride()}")
-    if not w.is_contiguous() or w.data_ptr() % 16 or (w_kn and n % 8):
-        raise ValueError("skinny_matmul: w must be contiguous and 16-byte aligned (and, "
-                         "as [K, N], have N % 8 == 0)")
+    if not w.is_contiguous() or w.data_ptr() % 16 or (w_kn and n % vec):
+        raise ValueError(f"skinny_matmul: w must be contiguous and 16-byte aligned (and, "
+                         f"as [K, N], have N % {vec} == 0)")
 
 
-_FN = None
+_FNS = {}
+
+
+def _entry(name: str, ints: int):
+    """A kernel's C entry (x, w, bias, o, M, N, K, ldx, `ints` ints, the
+    stream), loaded once (a launch is on every gated Dense call of a
+    forward, so the host path stays short)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(kernels.load(name), name)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+                       + [ctypes.c_int] * ints + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
 
 
 def _fn():
-    """The kernel's C entry, loaded once (a launch is on every gated Dense
-    call of a forward, so the host path stays short)."""
-    global _FN
-    if _FN is None:
-        fn = getattr(kernels.load(NAME), NAME)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    """The 16-bit kernel's C entry (dtype code, w_kn, BN)."""
+    return _entry(NAME, 3)
+
+
+def _fn_f32():
+    """The fp32 kernel's C entry (w_kn)."""
+    return _entry(NAME_F32, 1)
 
 
 def _error(rc: int) -> str:
@@ -151,25 +189,30 @@ def _error(rc: int) -> str:
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], w_kn: bool,
-           bn: int) -> torch.Tensor:
-    """One launch of the kernel with tile width `bn` on inputs `_check` has
-    passed; raises if the launch fails."""
+           bn: Optional[int] = None) -> torch.Tensor:
+    """One launch of the kernel of x's dtype on inputs `_check` has passed
+    (the 16-bit kernel with tile width `bn`; the fp32 kernel's is fixed);
+    raises if the launch fails."""
     m, k = x.shape
     n = w.shape[1] if w_kn else w.shape[0]
     o = torch.empty((m, n), dtype=x.dtype, device=x.device)
     dev = x.device.index
     args = (x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-            o.data_ptr(), m, n, k, x.stride(0), _DTYPE_CODES[x.dtype], int(w_kn), bn)
+            o.data_ptr(), m, n, k, x.stride(0))
+    if x.dtype == torch.float32:
+        name, fn, args = NAME_F32, _fn_f32(), args + (int(w_kn),)
+    else:
+        name, fn, args = NAME, _fn(), args + (_DTYPE_CODES[x.dtype], int(w_kn), bn)
     # the launch goes to the current device's current stream; a device guard
     # only where x lies on another device
     if dev == torch.cuda.current_device():
-        rc = _fn()(*args, torch._C._cuda_getCurrentRawStream(dev))
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     else:
         with torch.cuda.device(dev):
-            rc = _fn()(*args, torch._C._cuda_getCurrentRawStream(dev))
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
-        raise RuntimeError(f"{NAME} launch failed: {_error(rc)}")
-    kernels.LAUNCHES[NAME] += 1
+        raise RuntimeError(f"{name} launch failed: {_error(rc)}")
+    kernels.LAUNCHES[name] += 1
     return o
 
 
@@ -180,6 +223,8 @@ def skinny_matmul(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]
     if x.device.type == "cpu":
         return skinny_matmul_ref(x, w, bias, w_kn=w_kn)
     _check(x, w, bias, w_kn)
+    if x.dtype == torch.float32:
+        return launch(x, w, bias, w_kn)
     return launch(x, w, bias, w_kn, tile_n(w.shape[1] if w_kn else w.shape[0], w_kn))
 
 

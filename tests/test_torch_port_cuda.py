@@ -1,6 +1,6 @@
 """The CUDA kernels (flash-attention forward, dQ, dK/dV in 16 bits and in fp32;
-GroupNorm + SiLU; the skinny-N matmul) against their plain versions, on the
-card, with TF32 off.
+GroupNorm + SiLU; the skinny-N matmul in 16 bits and in fp32) against their
+plain versions, on the card, with TF32 off.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with the CUDA toolkit, is
 marked `cuda`, and skips elsewhere. The module imports torch only (no JAX), so
@@ -32,6 +32,7 @@ from difashion_tpu_torch.nn.kernels.groupnorm import (
 from difashion_tpu_torch.nn.kernels.skinny_matmul import (
     SkinnyMatmul,
     skinny_matmul,
+    skinny_matmul_3xtf32_ref,
     skinny_matmul_ref,
 )
 
@@ -326,7 +327,8 @@ def test_sdpa_autograd_routes_through_the_kernels(dev):
     assert dict(kernels.LAUNCHES) == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
                                       "flash_attention_dkv": 1, "flash_attention_fwd_f32": 0,
                                       "flash_attention_dq_f32": 0, "flash_attention_dkv_f32": 0,
-                                      "group_norm_silu": 0, "skinny_matmul": 0}
+                                      "group_norm_silu": 0, "skinny_matmul": 0,
+                                      "skinny_matmul_f32": 0}
     grads = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -822,25 +824,42 @@ def _mm_inputs(m, k, n, dtype, dev, seed=0):
     return x, w
 
 
+# the fp32 kernel against its plain 3xTF32 version: the same split products
+# summed in another order (chip_smoke.py's F32_MM_TOL)
+F32_MM_TOL = 2e-6
+
+
+def _mm_counter(dtype):
+    return "skinny_matmul_f32" if dtype == torch.float32 else "skinny_matmul"
+
+
+def _mm_plain(dtype):
+    """The plain version the kernel of `dtype` is held against: the fp32
+    kernel's arithmetic (3xTF32) in fp32, the fp32 sum rounded once in 16 bits."""
+    return skinny_matmul_3xtf32_ref if dtype == torch.float32 else skinny_matmul_ref
+
+
 def _mm_close(got, want, dtype):
-    """Both sum in fp32 and round once: at most one unit in the last place
-    apart (2^-7 of the value in bf16, 2^-10 in fp16), plus the fp32 sums'
-    order near zero."""
+    """16 bits: both sum in fp32 and round once: at most one unit in the last
+    place apart (2^-7 of the value in bf16, 2^-10 in fp16), plus the fp32
+    sums' order near zero. fp32: F32_MM_TOL relative L2."""
+    if dtype == torch.float32:
+        return _rel(got, want) <= F32_MM_TOL
     rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
     diff = (got.float() - want.float()).abs()
     return bool((diff <= rel * want.float().abs() + 1e-3).all())
 
 
 @pytest.mark.parametrize("m,k,n", MM_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_skinny_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     x, w = _mm_inputs(m, k, n, dtype, dev)
     kernels.reset_launches()
     o = skinny_matmul(x, w)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["skinny_matmul"] == 1
+    assert {c: v for c, v in kernels.LAUNCHES.items() if v} == {_mm_counter(dtype): 1}
     assert o.dtype == dtype and o.shape == (m, n) and o.is_contiguous()
-    assert _mm_close(o, skinny_matmul_ref(x, w), dtype)
+    assert _mm_close(o, _mm_plain(dtype)(x, w), dtype)
     # a row stride wider than K (a view into a wider tensor) reads in place
     wide = torch.zeros(m, k + 8, dtype=dtype, device=dev)
     wide[:, :k] = x
@@ -850,14 +869,16 @@ def test_skinny_matmul_kernel_matches_plain(dev, m, k, n, dtype):
 def _mm_close_after_bias(got, want, prod, dtype):
     """Kernel vs plain with a bias: the products may round one unit in the
     last place apart (as `_mm_close`), and the sums with the bias round once
-    more (a unit of the result's)."""
+    more (a unit of the result's). fp32: F32_MM_TOL relative L2."""
+    if dtype == torch.float32:
+        return _rel(got, want) <= F32_MM_TOL
     rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
     diff = (got.float() - want.float()).abs()
     return bool((diff <= rel * (prod.float().abs() + want.float().abs()) + 1e-3).all())
 
 
 @pytest.mark.parametrize("m,k,n", MM_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("w_kn", [False, True])
 def test_skinny_matmul_bias_and_layout_match_plain(dev, m, k, n, dtype, w_kn):
     """The kernel with a bias, and with the weight given as [K, N] (`w_kn`,
@@ -866,30 +887,54 @@ def test_skinny_matmul_bias_and_layout_match_plain(dev, m, k, n, dtype, w_kn):
     x, w = _mm_inputs(m, k, n, dtype, dev, seed=1)
     b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(2), device=dev).to(dtype)
     wl = w.t().contiguous() if w_kn else w
+    plain = _mm_plain(dtype)
     kernels.reset_launches()
     o = skinny_matmul(x, wl, b, w_kn=w_kn)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["skinny_matmul"] == 1
+    assert {c: v for c, v in kernels.LAUNCHES.items() if v} == {_mm_counter(dtype): 1}
     assert o.dtype == dtype and o.shape == (m, n) and o.is_contiguous()
-    prod = skinny_matmul_ref(x, wl, w_kn=w_kn)
-    assert _mm_close_after_bias(o, skinny_matmul_ref(x, wl, b, w_kn=w_kn), prod, dtype)
+    prod = plain(x, wl, w_kn=w_kn)
+    assert _mm_close_after_bias(o, plain(x, wl, b, w_kn=w_kn), prod, dtype)
     no_bias = skinny_matmul(x, wl, w_kn=w_kn)
     assert _mm_close(no_bias, prod, dtype) and _mm_close(no_bias, skinny_matmul(x, w), dtype)
 
 
 @pytest.mark.parametrize("m,k,n", [(512, 64, 30), (2048, 320, 1001)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_skinny_matmul_odd_n_matches_plain(dev, m, k, n, dtype):
     """N % 8 != 0: rows of o are not 16-byte multiples, so the epilogue
-    stores from registers instead of through TMA."""
+    stores from registers instead of through TMA (the fp32 kernel stores
+    from registers always, single floats where N is odd)."""
     x, w = _mm_inputs(m, k, n, dtype, dev, seed=5)
     b = torch.randn(n, device=dev).to(dtype)
+    plain = _mm_plain(dtype)
     for bias in (None, b):
+        kernels.reset_launches()
         o = skinny_matmul(x, w, bias)
         torch.cuda.synchronize()
-        prod = skinny_matmul_ref(x, w)
+        assert kernels.LAUNCHES[_mm_counter(dtype)] == 1
+        prod = plain(x, w)
         assert o.shape == (m, n) and o.is_contiguous()
-        assert _mm_close_after_bias(o, skinny_matmul_ref(x, w, bias), prod, dtype)
+        assert _mm_close_after_bias(o, plain(x, w, bias), prod, dtype)
+
+
+def test_skinny_matmul_f32_against_fp64(dev):
+    """The fp32 kernel no farther from an fp64 product than 1.25x its plain
+    3xTF32 version (both drop lo * lo), and far closer than one TF32 pass
+    (F.linear with TF32 allowed) at a routed shape, in both layouts."""
+    rel = lambda a, b: ((a.double() - b).norm() / b.norm()).item()
+    x, w = _mm_inputs(8192, 640, 640, torch.float32, dev, seed=6)
+    b = torch.randn(640, device=dev)
+    ref = x.double() @ w.double().t() + b.double()
+    plain = rel(skinny_matmul_3xtf32_ref(x, w, b), ref)
+    for o in (skinny_matmul(x, w, b), skinny_matmul(x, w.t().contiguous(), b, w_kn=True)):
+        assert rel(o, ref) <= 1.25 * plain
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = torch.nn.functional.linear(x, w, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert rel(skinny_matmul(x, w, b), ref) < rel(one_pass, ref) / 50
 
 
 def test_skinny_matmul_wrapper_rejects_bias_and_layout(dev):
@@ -910,9 +955,15 @@ def test_skinny_matmul_wrapper_rejects_bias_and_layout(dev):
 def test_skinny_matmul_wrapper_rejects(dev):
     x, w = _mm_inputs(512, 64, 64, torch.bfloat16, dev)
     with pytest.raises(TypeError):
-        skinny_matmul(x.float(), w.float())
+        skinny_matmul(x.float(), w)                          # mixed dtypes
+    with pytest.raises(TypeError):
+        skinny_matmul(x.double(), w.double())                # no kernel's dtype
     with pytest.raises(ValueError):
         skinny_matmul(x[:, :60], w[:, :60])                  # K % 8
+    with pytest.raises(ValueError):
+        skinny_matmul(x.float()[:, :62], w.float()[:, :62])  # fp32: K % 4
+    with pytest.raises(ValueError):
+        skinny_matmul(x.float(), w.float()[:62].t().contiguous(), w_kn=True)  # fp32 N % 4
     with pytest.raises(ValueError):
         skinny_matmul(x.t(), w)                              # not unit stride along K
     with pytest.raises(ValueError):
@@ -929,8 +980,8 @@ def test_dense_routes_through_the_kernel(dev):
     dy = torch.randn(2, 2048, 640, device=dev).bfloat16()
     kernels.reset_launches()
     with torch.inference_mode():
-        dense(x.detach())                                    # fp32: F.linear
-    assert kernels.LAUNCHES["skinny_matmul"] == 0
+        dense(x.detach())                                    # fp32: the fp32 kernel
+    assert kernels.LAUNCHES["skinny_matmul"] == 0 and kernels.LAUNCHES["skinny_matmul_f32"] == 1
     with torch.autocast("cuda", dtype=torch.bfloat16):
         y = dense(x)                                          # fp32 master weight, bf16 compute
     y.backward(dy)
@@ -974,6 +1025,33 @@ def test_skinny_matmul_autograd_with_bias_matches_plain(dev):
     assert _mm_close(grads[0], x.grad, torch.bfloat16)
     assert torch.equal(grads[1], w.grad) and torch.equal(grads[2], b.grad)
     assert grads[2].dtype == torch.bfloat16
+
+
+def test_skinny_matmul_f32_autograd_matches_plain(dev):
+    """fp32 through `Dense`: the forward and dx on the fp32 kernel (one
+    launch each), dw and db plain; against the plain versions (fp32 F.linear
+    and its autograd, TF32 off)."""
+    from difashion_tpu_torch.nn.layers import Dense
+
+    dense = Dense(320, 640).to(dev)
+    with torch.no_grad():
+        dense.bias.normal_()
+    x = torch.randn(2, 2048, 320, device=dev).requires_grad_()
+    dy = torch.randn(2, 2048, 640, device=dev)
+    kernels.reset_launches()
+    y = dense(x)
+    y.backward(dy)
+    assert {c: v for c, v in kernels.LAUNCHES.items() if v} == {"skinny_matmul_f32": 2}
+    grads = [t.grad.clone() for t in (x, dense.weight, dense.bias)]
+    for t in (x, dense.weight, dense.bias):
+        t.grad = None
+    with kernels.plain_versions():
+        y_plain = dense(x)
+        y_plain.backward(dy)
+    assert kernels.LAUNCHES["skinny_matmul_f32"] == 2
+    assert y.dtype == torch.float32 and _rel(y, y_plain) <= 1e-5
+    for got, t in zip(grads, (x, dense.weight, dense.bias)):
+        assert got.dtype == torch.float32 and _rel(got, t.grad) <= 1e-5
 
 
 def test_skinny_matmul_autograd_matches_plain(dev):

@@ -30,8 +30,8 @@ from difashion_tpu_torch.nn.kernels.flash_attention import (
     flash_attention_bwd_3xtf32_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
-    tf32_split,
 )
+from difashion_tpu_torch.nn.kernels.tf32 import tf32_split
 
 # the gradients' bound in chip_smoke.py (F32_TOL): relative L2
 F32_TOL = 2e-5
@@ -292,3 +292,29 @@ def test_f32_source_runs_3xtf32_on_the_tensor_cores():
         else:
             smem = 6 * 64 * dp * 4 + 2 * 2 * 64 * 4
             assert (kv_rows, bq) == (64, 64) and per_sm == min(4, (228 * 1024) // (smem + 1024))
+
+
+def test_skinny_f32_source_runs_3xtf32_on_the_tensor_cores():
+    """The fp32 skinny-N source runs tf32 products on the tensor cores
+    (wgmma m64nNk8, K-major) with both operands split into hi and lo (x's
+    and w's chunks, dx's [K, N] weight transposed on the way), the small
+    terms first (lo*hi, hi*lo, hi*hi) into a chunk's fresh accumulators that
+    are added to the running sums once a chunk, with the flash kernels'
+    rounding to TF32; no atomics, and the entry the wrapper calls."""
+    src = open(os.path.join(kernels.CSRC_DIR, "skinny_matmul_f32.cu")).read()
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in src
+    # the three products of each 8-deep step: lo(x) hi(w), hi(x) lo(w), hi(x) hi(w)
+    calls = re.findall(r"mma_tf32\(part, tile_desc\((\w+), kk\), tile_desc\((\w+), kk\), "
+                       r"([^)]*)\);", src)
+    assert calls == [("xl", "wh", "kk != 0"), ("xh", "wl", "1"), ("xh", "wh", "1")]
+    assert "acc[i] += part[i]" in src
+    # both operands split: x's rows, w's rows ([N, K]) or columns ([K, N])
+    assert src.count("put_row4(st, st + kXTile") == 1
+    assert "put_row4(wst, wst + kWTile" in src and "put_col4(wst, wst + kWTile" in src
+    f32_src = open(os.path.join(kernels.CSRC_DIR, f"{F32_SOURCE}.cu")).read()
+    rounding = "return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;"
+    assert rounding in src and rounding in f32_src
+    assert "lo = to_tf32(x - __uint_as_float(hi));" in src
+    assert "atomic" not in src.lower()
+    assert 'extern "C" int skinny_matmul_f32(' in src
+    assert "skinny_matmul_f32_kernel<KN><<<grid" in src

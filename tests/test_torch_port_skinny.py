@@ -2,9 +2,12 @@
 Dense layers' gate, which the port runs on the CPU, against the JAX package's
 `tools/pallas_skinny_matmul.py`: `matmul_2d` with the Pallas kernel in
 interpret mode, `jax.grad` through its `_matmul` custom VJP, and
-`pallas_dense_dot`'s gate over every Dense product of the sd2_base towers. The
-CUDA kernel itself is held against the same plain version on the card
-(tests/test_torch_port_cuda.py, chip_smoke.py).
+`pallas_dense_dot`'s gate over every Dense product of the sd2_base towers, in
+bf16 and fp32; and the fp32 kernel's plain 3xTF32 version
+(`skinny_matmul_3xtf32_ref`, its custom VJP) against the same and an fp64
+product. The CUDA kernels themselves are held against these plain versions
+on the card (tests/test_torch_port_cuda.py, chip_smoke.py,
+scripts/skinny_matmul_f32.py).
 
 Tolerances: fp32 1e-5 (sums of at most 320 products in another order). bf16:
 both sides sum in fp32 and round once, so they differ by at most one unit in
@@ -26,6 +29,7 @@ from difashion_tpu_torch.config import ModelConfig
 from difashion_tpu_torch.models.difashion import DiFashion
 from difashion_tpu_torch.nn import kernels, layers
 from difashion_tpu_torch.nn.kernels import skinny_matmul as sm
+from difashion_tpu_torch.nn.kernels.tf32 import tf32_split
 from difashion_tpu_torch.nn.layers import Dense
 
 from test_torch_port_models import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -164,6 +168,14 @@ def test_bias_in_the_function_matches_autograd_through_the_add():
         assert got.dtype == want.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
+def test_fp32_kernel_is_built_and_counted():
+    """The fp32 kernel has a source of its own, built with the others, and a
+    launch counter of its own beside the 16-bit kernel's."""
+    assert sm.NAME_F32 in kernels.KERNELS and sm.NAME_F32 in kernels.LAUNCHES
+    assert sm.NAME in kernels.KERNELS and sm.NAME in kernels.LAUNCHES
+    assert os.path.exists(os.path.join(kernels.CSRC_DIR, f"{sm.NAME_F32}.cu"))
+
+
 def test_tile_widths():
     """The tile width is one the kernel is built for, at every N the gate
     passes, in both layouts; the routed N take the measured table."""
@@ -224,10 +236,11 @@ def _dense_products(cfg, batch):
     return seen
 
 
-def test_dense_route_matches_jax_gate(jmm, monkeypatch):
-    """`gate` against `pallas_dense_dot` itself (traced abstractly, on a TPU
-    as far as the gate can tell) at every Dense product of the sd2_base towers
-    at the batches the paths use, in bf16."""
+def _gate_against_jax(jmm, monkeypatch, dtype):
+    """The routed products of the sd2_base towers at the batches the paths
+    use, by `gate` in `dtype` and by `pallas_dense_dot` itself (traced
+    abstractly, on a TPU as far as the gate can tell): asserts they are the
+    same set, and returns it."""
     monkeypatch.setattr(jmm, "_on_tpu", lambda: True)
     calls = []
 
@@ -240,17 +253,24 @@ def test_dense_route_matches_jax_gate(jmm, monkeypatch):
     def jax_routes(rows, k, n):
         calls.clear()
         jax.eval_shape(lambda a, b: jmm.pallas_dense_dot(a, b, (((1,), (0,)), ((), ()))),
-                       jax.ShapeDtypeStruct((rows, k), jnp.bfloat16),
-                       jax.ShapeDtypeStruct((k, n), jnp.bfloat16))
+                       jax.ShapeDtypeStruct((rows, k), getattr(jnp, dtype)),
+                       jax.ShapeDtypeStruct((k, n), getattr(jnp, dtype)))
         return bool(calls)
 
     cfg = ModelConfig.sd2_base()
     products = set()
     for batch in (1, 4, 8, 16, 64):
         products |= _dense_products(cfg, batch)
-    routed = {(m, k, n) for m, k, n in products
-              if sm.gate(m, n, k, torch.bfloat16, torch.bfloat16)}
+    td = getattr(torch, dtype)
+    routed = {(m, k, n) for m, k, n in products if sm.gate(m, n, k, td, td)}
     assert routed == {p for p in products if jax_routes(*p)}
+    return routed
+
+
+def test_dense_route_matches_jax_gate(jmm, monkeypatch):
+    """`gate` against `pallas_dense_dot` itself at every Dense product of the
+    sd2_base towers at the batches the paths use, in bf16."""
+    routed = _gate_against_jax(jmm, monkeypatch, "bfloat16")
     # what the gate takes: the 64x64 and 32x32 levels, the 16x16 level from 8
     # rows, the mid level at 64, net_2 up to C = 640, the VAE mid attention
     assert (16 * 4096, 320, 320) in routed and (16 * 1024, 2560, 640) in routed
@@ -263,13 +283,28 @@ def test_dense_route_matches_jax_gate(jmm, monkeypatch):
     assert (4 * 4096, 512, 512) in routed                 # VAE mid attention
 
 
+def test_dense_route_matches_jax_gate_in_fp32(jmm, monkeypatch):
+    """The same in fp32 (an fp32 model's products): the 8 MiB rule counts the
+    weight in fp32 bytes and still takes the products it takes in bf16
+    (net_2 at C = 640 is 6.5 MB), and leaves out the same ones."""
+    routed = _gate_against_jax(jmm, monkeypatch, "float32")
+    assert routed == _gate_against_jax(jmm, monkeypatch, "bfloat16")
+    assert (16 * 1024, 2560, 640) in routed and (4 * 4096, 512, 512) in routed
+    assert (16 * 256, 5120, 1280) not in routed           # 26 MB in fp32
+
+
 def test_dense_route_stays_off_the_cpu_and_fp32():
+    """The route stays off the CPU (F.linear there, in every dtype) and off a
+    product of mixed dtypes (JAX's rule: x and the weight of one dtype); an
+    fp32 product is gated like a bf16 one, for the fp32 kernel, on CUDA."""
     x = torch.zeros(4096, 320)
     w = torch.zeros(320, 320)
     assert not sm.dense_route(x, w)                       # the CPU: F.linear
+    assert not sm.dense_route(x.bfloat16(), w.bfloat16())
     assert sm.gate(4096, 320, 320, torch.bfloat16, torch.bfloat16)
-    assert not sm.gate(4096, 320, 320, torch.float32, torch.float32)   # no fp32 kernel
+    assert sm.gate(4096, 320, 320, torch.float32, torch.float32)      # the fp32 kernel
     assert not sm.gate(4096, 320, 320, torch.bfloat16, torch.float32)  # JAX's dtype rule
+    assert not sm.gate(4096, 320, 320, torch.float64, torch.float64)   # no kernel's dtype
     with torch.autocast("cpu", dtype=torch.bfloat16):
         assert sm.compute_dtypes(x, w) == (torch.bfloat16, torch.bfloat16)
     assert sm.compute_dtypes(x.bfloat16(), w) == (torch.bfloat16, torch.float32)
@@ -352,3 +387,80 @@ def test_every_linear_is_dense():
     assert linears and all(type(m) is Dense for m in linears)
     # the keys stay nn.Linear's
     assert set(dict(linears[0].named_parameters())) <= {"weight", "bias"}
+
+
+# ---- the fp32 kernel's plain 3xTF32 version ----------------------------------------
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("w_kn", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+def test_3xtf32_plain_version_matches_jax_kernel(jmm, m, k, n, w_kn, bias):
+    """`skinny_matmul_3xtf32_ref` on fp32 inputs, with and without a bias,
+    the weight as [N, K] or [K, N], against the Pallas kernel in interpret
+    mode (plus flax's bias add): 1e-5."""
+    x, w = _xw(m, k, n, seed=9)
+    b = _bias(n, seed=10)
+    prod = jmm.matmul_2d(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    want = np.asarray(prod + jnp.asarray(b) if bias else prod)
+    tx, tb = torch.from_numpy(x), torch.from_numpy(b) if bias else None
+    tw = torch.from_numpy(w if w_kn else w.T.copy())
+    got = sm.skinny_matmul_3xtf32_ref(tx, tw, tb, w_kn=w_kn)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, **TOL32)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("w_kn", [False, True])
+def test_3xtf32_plain_version_matches_fp64(m, k, n, w_kn):
+    """Against an fp64 product of the same inputs: within 1e-5, and far
+    closer than one TF32 pass (hi * hi alone, 2^-11 of an operand): the lo
+    terms are there, and only lo * lo (2^-22) is dropped."""
+    x, w = _xw(m, k, n, seed=11)
+    b = _bias(n, seed=12)
+    want = x.astype(np.float64) @ w.astype(np.float64) + b
+    tx, tb = torch.from_numpy(x), torch.from_numpy(b)
+    tw = torch.from_numpy(w if w_kn else w.T.copy())
+    got = sm.skinny_matmul_3xtf32_ref(tx, tw, tb, w_kn=w_kn).double().numpy()
+    np.testing.assert_allclose(got, want, **TOL32)
+    (xh, _), (wh, _) = tf32_split(tx), tf32_split(torch.from_numpy(w))
+    one_pass = (xh.double() @ wh.double()).numpy() + b
+    assert np.abs(got - want).max() < np.abs(one_pass - want).max() / 50
+
+
+def test_3xtf32_plain_version_takes_fp32_only():
+    x, w = torch.zeros(4, 8), torch.zeros(2, 8)
+    for args in ((x.bfloat16(), w), (x, w.double()), (x, w, torch.zeros(2).half())):
+        with pytest.raises(TypeError):
+            sm.skinny_matmul_3xtf32_ref(*args)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 64, 32), (1000, 96, 64), (2048, 320, 320)])
+def test_3xtf32_custom_vjp_matches_jax(jmm, monkeypatch, m, k, n):
+    """`SkinnyMatmul` computing what the fp32 kernel computes (its wrapper
+    replaced by `skinny_matmul_3xtf32_ref`, as on the card: the forward and
+    dx = g . w on the stored weight read as [K, N]; dw and db plain) against
+    `jax.grad` through the `_matmul` custom VJP plus the bias add: dx, dw
+    and db, fp32."""
+    x, w = _xw(m, k, n, seed=13)
+    b = _bias(n, seed=14)
+    g = np.random.RandomState(15).randn(m, n).astype(np.float32)
+    loss = lambda x, w, b: jnp.sum((jmm.matmul_2d(x, w, interpret=True) + b) * g)
+    jdx, jdw, jdb = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                                       jnp.asarray(b))
+    calls = []
+
+    def kernel(*args, **kw):
+        calls.append(kw.get("w_kn", False))
+        return sm.skinny_matmul_3xtf32_ref(*args, **kw)
+
+    monkeypatch.setattr(sm, "skinny_matmul", kernel)
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w.T.copy()).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    out = sm.SkinnyMatmul.apply(tx, tw, False, tb)
+    np.testing.assert_allclose(out.detach().numpy(), x @ w + b, **TOL32)
+    out.backward(torch.from_numpy(g))
+    assert calls == [False, True]                          # the forward, then dx as [K, N]
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **TOL32)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw).T, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb), rtol=1e-5, atol=1e-4)
