@@ -62,6 +62,11 @@ line each:
      without a bias, the plain versions' (fp32 and 3xTF32), the library's
      (fp32, TF32 off), the 3xTF32 and SIMT bounds and their shares, and the
      wrapper's host microseconds per call;
+  3d. dense_alignment: the gated Dense at 2048 rows on products the gate
+     takes and the kernels cannot read as they lie (K = 30; bf16 dx of
+     N = 100; a row stride of K + 1): F.linear / torch.matmul there, no
+     launch, bit for bit; Dense(64, 100)'s kernel launches beside; bf16 and
+     fp32, forward and backward, against F.linear;
   4. reference: the whole generation path at the tiny config on the card
      (fp16) against the port's CPU fp32 run of the same weights and inputs,
      with each scheduler: PNDM, DDIM (eta 0, and eta 0.5 with the same step
@@ -126,6 +131,14 @@ line each:
      launches (the main path's at 16 rows), the memory held when evaluate
      starts; generate seconds and evaluate seconds per image split into the
      loader, each tower and the rest, and the peak;
+  7g. eval_weights_drill: the port's exporter writes a full-size evaluation
+     weights directory (every tower, the CLIP-shaped tokenizer); the strict
+     parity command (no --allow_random_weights) runs FITB from it over 4
+     outfits: every tower loaded, the metrics finite; the files' bytes, the
+     write, read and build seconds;
+  7h. eval_scale: `scripts/eval_scale_smoke_cuda.py` at 32 FITB outfits over
+     200 catalog JPEGs at 512 px (the evaluate command in a child): wall
+     seconds, the child's peak resident set, the per-image split;
   8. kernel_bwd: the dQ and dK/dV kernels against the plain backward at the
      training UNet's attention shapes (batch 8 = 2 outfits x 4 items) and the
      ragged ones, both held against the plain backward in fp32, with their
@@ -182,6 +195,12 @@ line each:
      layout (flax msgpack), read into a fresh cuda state bit for bit, the
      read's seconds, host peak RSS and device peak against the fresh
      state's, then one train step from it.
+ 16a. train_soak: `scripts/train_soak_cuda.py --steps 8 --n_items 256` at the
+     sd2_base widths with the full recipe (8-bit AdamW, gradient
+     checkpointing, bf16, EMA): three legs of the train command, the SIGKILL
+     while stepping, a stale checkpoint-8.tmp, the continuity of legs 2 and
+     3, the EMA export re-imported and generating bit-equal images; every
+     step's launches those of phase train's gradient-checkpointing step;
  17. learning_proof: `scripts/learning_proof_cuda.py --steps 100` at the mid
      config (two legs of 50 with a resume, four generation runs, the report):
      the legs, checkpoints, runs and report, the same launches every train
@@ -205,7 +224,8 @@ line each:
      launches), seconds per
      step, the all-reduce and all-gather ms and the peak memory.
 
-Then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
+After each phase a line with its seconds ({"phase_seconds": ..., "seconds": ...}),
+then the kernels line, and last {"ok": true, "device": {...}}. Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2.
 """
 import json
@@ -1318,6 +1338,69 @@ def phase_kernel_mm_f32(paths):
     return results, host
 
 
+DENSE_ALIGNMENT_ROWS = 2048   # the skinny-N gate's least M
+# (K, N, row stride of x): Dense products the gate takes at 2048 rows that
+# the kernels cannot read as they lie (K = 30; in 16 bits dx's N = 100; a
+# row stride of 65), beside Dense(64, 100), whose forward they read
+DENSE_ALIGNMENT_CASES = ((30, 100, 30), (64, 100, 64), (64, 64, 65))
+
+
+def phase_dense_alignment():
+    """The gated Dense takes only what the kernels read
+    (`nn/kernels/skinny_matmul.py::aligned`): each of DENSE_ALIGNMENT_CASES
+    at 2048 rows, x in bf16 under bf16 autocast over fp32 weights and in
+    fp32, forward and backward through `Dense`, against F.linear and its
+    autograd on the same inputs. Where the kernels cannot read x (K = 30, the row stride of 65)
+    no kernel launches and the output and gradients are F.linear's bit for
+    bit; Dense(64, 100) launches its forward in bf16 (dx, N = 100 in 16 bits,
+    through torch.matmul) and its forward and dx in fp32, within
+    UNET_REL_L2_TOL of F.linear in bf16 (the kernel adds the bias to the
+    rounded product) and F32_TOL in fp32 (3xTF32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from difashion_tpu_torch.nn import kernels
+    from difashion_tpu_torch.nn.layers import Dense
+
+    rows, problems = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        counter = "skinny_matmul" if bf16 else "skinny_matmul_f32"
+        for k, n, stride in DENSE_ALIGNMENT_CASES:
+            torch.manual_seed(k + n + stride)
+            dense = Dense(k, n).cuda()
+            # x in the compute dtype: autocast's cast would make a strided x contiguous
+            x = torch.randn(DENSE_ALIGNMENT_ROWS, stride, device="cuda").to(dtype)[:, :k]
+            x.requires_grad_()
+            g = torch.randn(DENSE_ALIGNMENT_ROWS, n, device="cuda")
+
+            def run(fn):
+                x.grad = dense.weight.grad = dense.bias.grad = None
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                    y = fn(x)
+                y.backward(g.to(y.dtype))
+                return [y.detach(), x.grad.clone(), dense.weight.grad.clone(),
+                        dense.bias.grad.clone()]
+
+            kernels.reset_launches()
+            got = run(dense)
+            launches = kernels.LAUNCHES[counter]
+            want = run(lambda t: F.linear(t, dense.weight, dense.bias))
+            errs = [rel_l2(a, b) for a, b in zip(got, want)]
+            expect = 0 if (k, stride) != (64, 64) else (1 if bf16 else 2)
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            row = {"dtype": str(dtype).split(".")[1], "k": k, "n": n, "x_row_stride": stride,
+                   "launches": launches, "expected_launches": expect,
+                   "rel_l2_y_dx_dw_db": errs, "bit_equal_to_linear": exact}
+            rows.append(row)
+            tol = UNET_REL_L2_TOL if bf16 else F32_TOL
+            if launches != expect or (expect == 0 and not exact) or max(errs) > tol:
+                problems.append(row)
+    emit({"phase": "dense_alignment", "rows": DENSE_ALIGNMENT_ROWS, "cases": rows})
+    if problems:
+        raise AssertionError(f"dense_alignment: {problems}")
+
+
 def phase_unet(model, mm_paths):
     """One sd2_base UNet forward through the kernels (attention and
     GroupNorm) and one through their plain versions, both in bf16, held
@@ -2389,6 +2472,7 @@ def phase_train(model, mm_paths):
                     want, group_norm_silu=n_gn + count_groupnorms(model.vae.encoder),
                     skinny_matmul=want["skinny_matmul"] + len(mm_paths["train_encode"])),
                  batch(images=True))]
+    variant_launches = {}
     for name, vc, vwant, vbatch in variants:
         for p in model.parameters():
             p.grad = None
@@ -2408,6 +2492,7 @@ def phase_train(model, mm_paths):
                "update_skipped": m["update_skipped"], "launches": dict(kernels.LAUNCHES)}
         emit(row)
         del vstate
+        variant_launches[name] = row["launches"]
         if not (row["launches"] == vwant and row["update_skipped"] == 0.0
                 and math.isfinite(row["loss"])):
             raise AssertionError(f"train variant {name}: {row}")
@@ -2415,7 +2500,7 @@ def phase_train(model, mm_paths):
     for p in model.parameters():
         p.grad = None
     torch.cuda.empty_cache()
-    return train_launches, peak, seconds
+    return train_launches, peak, seconds, variant_launches
 
 
 def phase_profile_train(model):
@@ -3656,6 +3741,176 @@ def phase_evaluate_parity(img_dir, names, feats, main_fwd):
             for k in want_fwd["FITB"]}
 
 
+def load_script(name):
+    """scripts/<name>.py as a module (scripts/ is no package)."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+DRILL_STEPS = 10   # the drill's PNDM steps: generation is evaluate_parity's business
+
+
+def phase_eval_weights_drill(img_dir, names, feats):
+    """The weights-arrival drill on the card: the port's exporter
+    (`eval/models/exporters.py::export_weights_dir`) writes a full-size
+    evaluation weights directory (ViT-H/14 image and text, both
+    InceptionV3s, VGG16 and the LPIPS heads, the compatibility net, the
+    CLIP-shaped tokenizer) from the seeded towers on the card; then the
+    strict `parity` command (no `--allow_random_weights`: the tokenizer and
+    every tower from that directory) runs FITB over one batch of 4 outfits
+    (16 UNet rows, DRILL_STEPS-step PNDM) of `write_parity_dataset`'s split
+    from a checkpoint of the seeded model. Checks: every file written, the
+    evaluate's towers all loaded (`random_towers` empty), the FITB cascade's
+    metrics finite. Prints the files' bytes and write seconds, the reads'
+    seconds and the towers' build (init and load) seconds."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from difashion_tpu_torch.__main__ import main as dispatch
+    from difashion_tpu_torch.cli import evaluate
+    from difashion_tpu_torch.config import Config
+    from difashion_tpu_torch.core import importer
+    from difashion_tpu_torch.eval.models.exporters import export_weights_dir
+
+    cfg = Config.preset_eta01()
+    cfg = dataclasses.replace(cfg, generation=dataclasses.replace(
+        cfg.generation, fitb_batch_size=PARITY_FITB_BATCH))
+    root = tempfile.mkdtemp(prefix="difashion_drill_")
+    builds, reads = [], []
+    build, read = evaluate.build_extractors, importer.load_state_dict
+
+    def timed_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        X = build(*args, **kwargs)
+        torch.cuda.synchronize()
+        builds.append({"seconds": time.perf_counter() - t0,
+                       "random_towers": list(X.random_towers),
+                       "allow_random": kwargs.get("allow_random")})
+        return X
+
+    def timed_read(path):
+        t0 = time.perf_counter()
+        sd = read(path)
+        reads.append({"file": os.path.basename(path), "seconds": time.perf_counter() - t0})
+        return sd
+
+    try:
+        wdir = os.path.join(root, "eval_weights")
+        t0 = time.perf_counter()
+        files = export_weights_dir(wdir, tiny=False, seed=0, device="cuda")
+        export_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        flags = write_parity_dataset(root, len(names), feats, cfg.model)
+        paths_npy = os.path.join(root, "paths.npy")
+        np.save(paths_npy, np.array(names, dtype=object))
+        cfg_path, ckpt, out = (os.path.join(root, n) for n in ("config.json", "ckpt", "out"))
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        write_parity_checkpoint(cfg, ckpt)
+        evaluate.build_extractors, importer.load_state_dict = timed_build, timed_read
+        t0 = time.perf_counter()
+        rc = dispatch(["parity", *(x for kv in flags.items() for x in kv),
+                       "--img_folder_path", img_dir, "--image_paths_npy", paths_npy,
+                       "--weights_dir", wdir, "--mode", "test", "--device", "cuda",
+                       "--ckpt_dir", ckpt, "--out_dir", out, "--config", cfg_path,
+                       "--task", "FITB", "--max_batches", "1",
+                       "--num_inference_steps", str(DRILL_STEPS)])
+        parity_s = time.perf_counter() - t0
+        results = np.load(os.path.join(out, "eval_results.npy"), allow_pickle=True).item()
+        tokenizer = sorted(os.listdir(os.path.join(wdir, "tokenizer")))
+    finally:
+        evaluate.build_extractors, importer.load_state_dict = build, read
+        shutil.rmtree(root, ignore_errors=True)
+    (run, res), = results.items()
+
+    def finite(v):
+        return all(map(math.isfinite, v.values())) if isinstance(v, dict) else math.isfinite(v)
+
+    row = {"phase": "eval_weights_drill", "config": "full-size eval towers (fp32), strict parity",
+           "files": files, "bytes": sum(f["bytes"] for f in files.values()),
+           "export_seconds": export_s, "tokenizer": tokenizer, "reads": reads,
+           "read_seconds": sum(r["seconds"] for r in reads), "builds": builds,
+           "parity_rc": rc, "parity_seconds": parity_s, "run": run,
+           "results": {k: v for k, v in res.items()}}
+    emit(row)
+    missing = [m for m in CASCADE_METRICS[("FITB", False)] if m not in res or not finite(res[m])]
+    if (rc != 0 or len(files) != 6 or tokenizer != ["merges.txt", "vocab.json"]
+            or len(builds) != 1 or builds[0]["random_towers"] or builds[0]["allow_random"]
+            or len(reads) != 6 or missing):
+        raise AssertionError(f"eval_weights_drill: rc {rc}, files {sorted(files)}, tokenizer "
+                             f"{tokenizer}, builds {builds}, reads {len(reads)}, "
+                             f"missing metrics {missing}")
+
+
+EVAL_SCALE_OUTFITS, EVAL_SCALE_ITEMS = 32, 200   # the smoke at 32 FITB outfits, 512 px
+
+
+def phase_eval_scale():
+    """`scripts/eval_scale_smoke_cuda.py` (its `main`, the evaluate command
+    in a child process) at EVAL_SCALE_OUTFITS FITB outfits over
+    EVAL_SCALE_ITEMS catalog JPEGs at 512 px with the full-size towers at
+    random weights: the plumbing of the dataset-scale smoke (the 1,988-outfit
+    run is the script's own). Checks the return code and that every metric
+    line field is there. Prints the wall seconds, the child's peak resident
+    set and the per-image split (loader, towers, build, rest)."""
+    import tempfile as tf
+
+    smoke = load_script("eval_scale_smoke_cuda")
+    with tf.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "smoke.jsonl")
+        rc = smoke.main(["--n_outfits", str(EVAL_SCALE_OUTFITS), "--n_items",
+                         str(EVAL_SCALE_ITEMS), "--img", "512", "--artifact", art])
+        with open(art) as f:
+            line = json.loads(f.read().splitlines()[-1])
+    emit({"phase": "eval_scale", **line})
+    if rc != 0 or line["returncode"] != 0 or not line["peak_rss_gib"] or not line["per_image"]:
+        raise AssertionError(f"eval_scale: rc {rc}, line {line}")
+
+
+SOAK_STEPS = 8      # legs of 4: the plumbing at sd2_base (the 500-step run is the script's)
+SOAK_ITEMS = 256    # the catalog cut to 256 items: 64 MiB of moments
+
+
+def phase_train_soak(gc_launches):
+    """`scripts/train_soak_cuda.py --steps SOAK_STEPS --n_items SOAK_ITEMS`
+    (its `main`: three legs of the train command in child processes) at
+    the sd2_base widths with the full recipe (8-bit AdamW, gradient
+    checkpointing, bf16, EMA, 2 outfits a step): leg 1 to the half, leg 2
+    SIGKILLed while stepping, a stale checkpoint-<steps>.tmp planted, leg 3
+    to the end; the continuity of legs 2 and 3; the final checkpoint
+    exported with its EMA weights (~4.4 GB of safetensors), re-imported, and
+    one GOR outfit (5 PNDM steps) from each bit-equal. Checks the script's
+    gates and that every train step launched what phase train's
+    gradient-checkpointing step launched (`gc_launches`: the same rows; the
+    8-bit optimizer launches no kernel). Prints each leg's seconds, seconds
+    per step, device peak, the export's bytes and seconds."""
+    import tempfile as tf
+
+    soak = load_script("train_soak_cuda")
+    with tf.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "report.json")
+        rc = soak.main(["--steps", str(SOAK_STEPS), "--n_items", str(SOAK_ITEMS),
+                        "--console_every", "1", "--kill_after_steps", "1", "--gen_steps", "5",
+                        "--report", path])
+        with open(path) as f:
+            r = json.load(f)
+    emit({"phase": "train_soak", "rc": rc, **{k: v for k, v in r.items() if k != "losses"}})
+    if rc != 0 or not r["passed"] or r["launches_per_step"] != [gc_launches]:
+        raise AssertionError(f"train_soak: rc {rc}, passed {r['passed']}, launches "
+                             f"{r['launches_per_step']} vs phase train's {gc_launches}")
+
+
 LEARNING_PROOF_STEPS = 100   # two legs of 50: the plumbing, not the gates
 
 
@@ -3672,14 +3927,9 @@ def phase_learning_proof():
     same, the flash forward and GroupNorm among them; the losses finite.
     Prints seconds per train step and the report's launches. Returns the
     launches of one train step and one sampler forward of each task."""
-    import importlib.util
     import tempfile as tf
 
-    spec = importlib.util.spec_from_file_location(
-        "learning_proof_cuda", os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                            "scripts", "learning_proof_cuda.py"))
-    lp = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(lp)
+    lp = load_script("learning_proof_cuda")
     with tf.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "report.json")
         rc = lp.main(["--steps", str(LEARNING_PROOF_STEPS), "--device", "cuda",
@@ -4381,6 +4631,14 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
     return {"kernels": entries}
 
 
+def timed(fn, *args):
+    """fn(*args), and a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase_seconds": fn.__name__[len("phase_"):], "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main():
     import tempfile
 
@@ -4397,28 +4655,31 @@ def main():
     if sys.argv[1:2] == ["--multi-gpu-rank"]:   # a rank of phase multi_gpu
         multi_gpu_rank(*sys.argv[2:4])
         return
-    phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+    timed(phase_device)
+    timed(phase_build)
     cfg = ModelConfig.sd2_base()
     sites = main_path_attention_sites(cfg, UNET_BATCH)
     if sum(c for *_, c in sites) != 32:
         raise AssertionError(f"expected 32 attentions per UNet forward, got {sites}")
     sd15_sites = [s for s in main_path_attention_sites(ModelConfig.sd15(), UNET_BATCH)
                   if s[5] <= 128]
-    results, sd15_results, f32_results, sd15_f32_results = phase_kernel(sites, sd15_sites)
-    phase_sd15_unet()
-    gn_results = phase_kernel_gn(groupnorm_sites(cfg))
+    results, sd15_results, f32_results, sd15_f32_results = timed(phase_kernel, sites,
+                                                                 sd15_sites)
+    timed(phase_sd15_unet)
+    gn_results = timed(phase_kernel_gn, groupnorm_sites(cfg))
     mm_paths = dense_sites(cfg)
     # the 8 MiB rule counts the weight in the compute dtype's bytes: an fp32
     # model routes the same products
     if dense_sites(cfg, dtype=torch.float32) != mm_paths:
         raise AssertionError("the Dense gate routes other products in fp32 than in bf16")
-    mm_results, mm_host = phase_kernel_mm(mm_paths)
-    mm32_results, mm32_host = phase_kernel_mm_f32(mm_paths)
-    phase_reference()
+    mm_results, mm_host = timed(phase_kernel_mm, mm_paths)
+    mm32_results, mm32_host = timed(phase_kernel_mm_f32, mm_paths)
+    timed(phase_dense_alignment)
+    timed(phase_reference)
     model = create_difashion(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    phase_unet(model, mm_paths)
-    launches = phase_main_path(model, mm_paths)
+    timed(phase_unet, model, mm_paths)
+    launches = timed(phase_main_path, model, mm_paths)
     # one sampler UNet forward's launches on the main path (batch 16)
     main_fwd = all_counts({
         "flash_attention_fwd": launches["flash_attention_fwd"] // (STEPS + 1),
@@ -4426,41 +4687,46 @@ def main():
                             - count_groupnorms(model.vae.decoder)) // (STEPS + 1),
         "skinny_matmul": (launches["skinny_matmul"]
                           - len(mm_paths["vae_decode"])) // (STEPS + 1)})
-    phase_profile(model)
-    serve_launches = phase_serve(model, mm_paths)
-    precompute_launches = phase_precompute(model, mm_paths)
+    timed(phase_profile, model)
+    serve_launches = timed(phase_serve, model, mm_paths)
+    precompute_launches = timed(phase_precompute, model, mm_paths)
     encode_gn = count_groupnorms(model.vae.encoder)
     del model
     torch.cuda.empty_cache()
-    main_fp32_launches = phase_main_path_fp32(mm_paths)
+    main_fp32_launches = timed(phase_main_path_fp32, mm_paths)
     with tempfile.TemporaryDirectory() as catalog:
         names = write_synthetic_catalog(catalog, NATIVE_ITEMS)
-        phase_native_loader(catalog, names)
-        phase_eval_towers()
-        feats = phase_extract_clip(catalog, names, encode_gn, len(mm_paths["vae_encode"]))
-        parity_launches = phase_evaluate_parity(catalog, names, feats, main_fwd)
+        timed(phase_native_loader, catalog, names)
+        timed(phase_eval_towers)
+        feats = timed(phase_extract_clip, catalog, names, encode_gn, len(mm_paths["vae_encode"]))
+        parity_launches = timed(phase_evaluate_parity, catalog, names, feats, main_fwd)
+        timed(phase_eval_weights_drill, catalog, names, feats)
+    timed(phase_eval_scale)
     # the training path, after the generation path: a backward leaves buffers
     # of its own (the autograd thread's cuBLAS workspace) that would count in
     # the main path's peak memory
     sd15_train_sites = [s for s in main_path_attention_sites(ModelConfig.sd15(), TRAIN_ROWS)
                         if s[5] <= 128]
-    bwd_results, bwd_f32_results, bwd_sd15_results = phase_kernel_bwd(
-        main_path_attention_sites(cfg, TRAIN_ROWS), sd15_train_sites)
-    phase_train_reference()
-    f32_launches = phase_fp32_reference()
+    bwd_results, bwd_f32_results, bwd_sd15_results = timed(
+        phase_kernel_bwd, main_path_attention_sites(cfg, TRAIN_ROWS), sd15_train_sites)
+    timed(phase_train_reference)
+    f32_launches = timed(phase_fp32_reference)
     # fp32 master weights under bf16 autocast
     model = create_difashion(cfg, seed=0, device="cuda").prepare_for_training()
-    phase_unet_grad(model, mm_paths)
-    train_launches, train_peak, train_seconds = phase_train(model, mm_paths)
-    phase_profile_train(model)
-    train_fp32 = phase_train_fp32(model, mm_paths)
+    timed(phase_unet_grad, model, mm_paths)
+    train_launches, train_peak, train_seconds, variant_launches = timed(phase_train, model,
+                                                                        mm_paths)
+    timed(phase_profile_train, model)
+    train_fp32 = timed(phase_train_fp32, model, mm_paths)
     del model
     torch.cuda.empty_cache()
-    live_state_bytes = phase_train_cli(train_launches, train_seconds)
-    phase_info(live_state_bytes, train_peak)
-    phase_jax_checkpoint(train_launches)
-    proof_launches = phase_learning_proof()
-    multi_launches = phase_multi_gpu(main_fwd)
+    live_state_bytes = timed(phase_train_cli, train_launches, train_seconds)
+    timed(phase_info, live_state_bytes, train_peak)
+    timed(phase_jax_checkpoint, train_launches)
+    timed(phase_train_soak, variant_launches["gradient_checkpointing"])
+    proof_launches = timed(phase_learning_proof)
+    multi_launches = timed(phase_multi_gpu, main_fwd)
+    emit({"phase_seconds": "all", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(results, launches, bwd_results, train_launches, gn_results,
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                       f32_results, sd15_f32_results, bwd_f32_results, f32_launches,

@@ -131,7 +131,7 @@ def run_vae_stage(args, image_paths) -> None:
     log.info("saved all_item_moments.npz / all_item_latents.npy")
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description="DiFashion feature extraction (PyTorch/CUDA)")
     p.add_argument("--data_path", required=True)
     p.add_argument("--img_folder_path", required=True)
@@ -143,8 +143,11 @@ def main(argv=None):
     p.add_argument("--pretrained_dir", default=None)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")
     image_paths = load_npy(args.image_paths_npy)

@@ -154,11 +154,13 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
                  max_steps: Optional[int] = None, log_dir: Optional[str] = None,
                  image_loader=None, report_to: tuple = ("tensorboard",),
                  validation_every: int = 0, validation_batches: int = 1, device="cuda",
-                 dp: Optional[DistInfo] = None):
+                 dp: Optional[DistInfo] = None, console_every: int = 50):
     """The training loop as a library function (the CLI and the tests share
     it). Returns (state, model): the final TrainState and the model whose
     parameters it holds. `dp`: this rank of a data-parallel group
-    (`initialize_distributed`), whose device it trains on."""
+    (`initialize_distributed`), whose device it trains on. `console_every`:
+    the steps between the host's syncs with the device, each a metrics row
+    (and a console line at its multiples of `MetricLogger`'s)."""
     log = setup_logging()
     tcfg = cfg.train
     max_steps = max_steps or tcfg.max_train_steps
@@ -218,7 +220,7 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
     metrics_log = None
     if writer:
         metrics_log = MetricLogger(
-            log_dir or tcfg.output_dir, report_to=report_to,
+            log_dir or tcfg.output_dir, console_every=console_every, report_to=report_to,
             run_config={"learning_rate": tcfg.learning_rate,
                         "train_batch_size": tcfg.train_batch_size,
                         "max_train_steps": max_steps, "eta": tcfg.eta,
@@ -344,6 +346,8 @@ def parse_args(argv=None):
     p.add_argument("--report_to", default="tensorboard",
                    help="comma-separated trackers: tensorboard,wandb,comet_ml (a missing "
                         "package is skipped with a warning; metrics.jsonl always written)")
+    p.add_argument("--console_every", type=int, default=50,
+                   help="steps between metrics rows (each a sync with the device)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -433,7 +437,8 @@ def _main(args, dp: Optional[DistInfo]):
     return run_training(cfg, data, moments_mean, moments_logvar, hist_store, tokenizer,
                         pretrained_dir=args.pretrained_dir, image_loader=image_loader,
                         report_to=report_to, validation_every=args.validation_steps,
-                        validation_batches=args.validation_batches, device=device, dp=dp)
+                        validation_batches=args.validation_batches, device=device, dp=dp,
+                        console_every=args.console_every)
 
 
 if __name__ == "__main__":

@@ -175,6 +175,21 @@ def lpips_heads_state(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def build_towers(tiny: bool = False, seed: int = 0, num_classes: int = 50, device="cuda"):
+    """(OpenCLIP, FID Inception, finetuned Inception, LPIPS, compat net):
+    every tower with seeded random weights on `device` in fp32 (the ViT-H/14
+    widths, or the tiny ones)."""
+    vcfg = ViTConfig.tiny() if tiny else ViTConfig.h14()
+    tcfg = TextConfig.tiny() if tiny else TextConfig.h14()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device(device):
+        return (init_open_clip(OpenCLIP(vcfg, tcfg), gen).eval(),
+                init_inception(InceptionV3(fid=True), gen),
+                init_inception(InceptionV3(num_classes=num_classes, transform_input=True), gen),
+                init_lpips(LPIPS(), gen),
+                init_fashion_evaluator(FashionEvaluator(vcfg.embed_dim), gen))
+
+
 def build_extractors(weights_dir: Optional[str] = None, num_classes: int = 50,
                      batch_size: int = 32, tiny: bool = False, seed: int = 0,
                      allow_random: bool = True, device="cuda") -> Extractors:
@@ -190,13 +205,7 @@ def build_extractors(weights_dir: Optional[str] = None, num_classes: int = 50,
     device = torch.device(device)
     vcfg = ViTConfig.tiny() if tiny else ViTConfig.h14()
     tcfg = TextConfig.tiny() if tiny else TextConfig.h14()
-    gen = torch.Generator(device=device).manual_seed(seed)
-    with torch.device(device):
-        clip = init_open_clip(OpenCLIP(vcfg, tcfg), gen).eval()
-        fid = init_inception(InceptionV3(fid=True), gen)
-        cls = init_inception(InceptionV3(num_classes=num_classes, transform_input=True), gen)
-        lp = init_lpips(LPIPS(), gen)
-        compat = init_fashion_evaluator(FashionEvaluator(vcfg.embed_dim), gen)
+    clip, fid, cls, lp, compat = build_towers(tiny, seed, num_classes, device)
 
     def load(tower, name, prepare):
         path = _find(weights_dir, name)

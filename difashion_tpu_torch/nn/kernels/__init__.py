@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_THREAD = threading.local()   # the devices whose context each thread has bound
 _plain = False
 
 
@@ -69,6 +70,24 @@ def plain_versions() -> Iterator[None]:
 
 def plain_active() -> bool:
     return _plain
+
+
+def bind_context(device: int) -> None:
+    """Make `device`'s primary context current on the calling thread, once
+    per thread, before a launch: its driver calls (the TMA tensor maps'
+    encoding) need one, and a thread that has made no CUDA runtime call yet,
+    such as the one autograd starts for a CUDA backward whose first operation
+    is a kernel's launch, has none (the encode fails with
+    CUDA_ERROR_INVALID_CONTEXT)."""
+    bound = getattr(_THREAD, "devices", None)
+    if bound is None:
+        bound = _THREAD.devices = set()
+    if device not in bound:
+        import torch
+
+        # a runtime call under the stream's device guard binds the context
+        torch.cuda.current_stream(device).query()
+        bound.add(device)
 
 
 def _nvcc() -> str:

@@ -336,6 +336,7 @@ def _launch(name: str, tensors, ints, strided, scale: float, dtype,
     st = (ctypes.c_int64 * len(strides))(*strides)
     fn = _fn(source, entry or name, len(tensors), len(ints))
     dev = tensors[0].device
+    kernels.bind_context(dev.index)
     with torch.cuda.device(dev):
         rc = fn(*(t.data_ptr() for t in tensors), *ints, ctypes.addressof(st),
                 float(scale), _DTYPE_CODES[dtype],

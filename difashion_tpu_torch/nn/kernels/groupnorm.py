@@ -293,6 +293,7 @@ def launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int
                             device=x.device) if plan.route == "two_pass" else None)
     scale32 = scale.detach().float().contiguous()
     bias32 = bias.detach().float().contiguous()
+    kernels.bind_context(x.device.index)
     with torch.cuda.device(x.device):
         rc = _fn(lib)(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
                    None if partials is None else partials.data_ptr(), b, x.numel() // (b * c), c, groups,

@@ -20,6 +20,11 @@ compute dtype, x and the weight of one compute dtype (bf16, fp16 or fp32),
 and M = the product of x's leading dimensions with M >= 2048 and
 M % 512 == 0. The compute dtype is autocast's where autocast is on (bf16
 training over fp32 master weights), as flax's Dense computes in its `dtype`.
+The kernels also read x's rows in 16-byte pieces, which the TPU kernel's
+(block_m, K) blocks do not need: `aligned` holds that rule on the x that a
+Dense would pass (after its cast and reshape), and a product it refuses goes
+to `F.linear`, as the JAX model's Dense computes any shape. dx = g . w reads
+g [M, N] by the same rule; where g fails it, dx alone is a plain product.
 
 `skinny_matmul` launches the kernel of x's dtype for CUDA tensors and raises
 on what the kernels do not take; for CPU tensors it computes the plain
@@ -121,6 +126,16 @@ def dense_route(x: torch.Tensor, weight: torch.Tensor) -> bool:
                 *compute_dtypes(x, weight))
 
 
+def aligned(x: torch.Tensor) -> bool:
+    """Whether the kernels read x [M, K] as it lies: rows in 16-byte pieces
+    (8 values of 16 bits, 4 of fp32), so K a multiple of that, unit stride
+    along K, a row stride that is a multiple of it and a 16-byte-aligned
+    base. A function of shape, strides, dtype and address."""
+    vec = 16 // x.element_size()
+    return (x.dim() == 2 and x.shape[1] % vec == 0 and x.stride(1) == 1
+            and x.stride(0) % vec == 0 and x.data_ptr() % 16 == 0)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], w_kn: bool) -> None:
     if not (x.is_cuda and w.device == x.device
             and (bias is None or bias.device == x.device)):
@@ -140,9 +155,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], w_kn:
     if bias is not None and (bias.shape != (n,) or not bias.is_contiguous()):
         raise ValueError(f"skinny_matmul: the bias must be a contiguous [{n}], got "
                          f"{tuple(bias.shape)}")
-    # rows read in 16-byte pieces: 8 values of 16 bits, 4 of fp32
     vec = 16 // x.element_size()
-    if k % vec or x.stride(1) != 1 or x.stride(0) % vec or x.data_ptr() % 16:
+    if not aligned(x):
         raise ValueError(f"skinny_matmul: x needs K % {vec} == 0, unit stride along K, a row "
                          f"stride that is a multiple of {vec} and a 16-byte aligned base; got "
                          f"{tuple(x.shape)} with strides {x.stride()}")
@@ -203,6 +217,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], w_kn:
         name, fn, args = NAME_F32, _fn_f32(), args + (int(w_kn),)
     else:
         name, fn, args = NAME, _fn(), args + (_DTYPE_CODES[x.dtype], int(w_kn), bn)
+    kernels.bind_context(dev)
     # the launch goes to the current device's current stream; a device guard
     # only where x lies on another device
     if dev == torch.cuda.current_device():
@@ -231,9 +246,11 @@ def skinny_matmul(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]
 class SkinnyMatmul(torch.autograd.Function):
     """o = x . w^T (+ bias) through `skinny_matmul` (or, with `plain`, its
     plain version). Saves x and w; the backward takes dx = g . w through the
-    same function on w as stored, read as [K, N] (`w_kn`), dw = g^T x as one
-    plain product in the inputs' dtype, and db = g summed over rows in g's
-    dtype (what autograd gives through a bias add)."""
+    same function on w as stored, read as [K, N] (`w_kn`), where g is
+    `aligned` (N a multiple of 16 bytes' worth of values), else through
+    `torch.matmul`; dw = g^T x as one plain product in the inputs' dtype, and
+    db = g summed over rows in g's dtype (what autograd gives through a bias
+    add)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, w: torch.Tensor, plain: bool,
@@ -248,7 +265,9 @@ class SkinnyMatmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         mm = skinny_matmul_ref if ctx.plain else skinny_matmul
         g = g.contiguous()
-        dx = mm(g, w, w_kn=True) if ctx.needs_input_grad[0] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = mm(g, w, w_kn=True) if aligned(g) else torch.matmul(g, w)
         dw = torch.matmul(g.t(), x) if ctx.needs_input_grad[1] else None
         db = g.sum(0) if ctx.has_bias and ctx.needs_input_grad[3] else None
         return dx, dw, None, db

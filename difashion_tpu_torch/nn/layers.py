@@ -27,6 +27,7 @@ from difashion_tpu_torch.nn.kernels.groupnorm import (
 )
 from difashion_tpu_torch.nn.kernels.skinny_matmul import (
     SkinnyMatmul,
+    aligned,
     compute_dtypes,
     dense_route,
     skinny_matmul,
@@ -51,7 +52,9 @@ class Dense(nn.Linear):
     back through the cast to an fp32 master weight), and the kernel (through
     `SkinnyMatmul` while autograd records) multiplies them and adds the bias,
     cast to the same dtype, to the rounded product in its epilogue, as flax's
-    Dense adds it after the product. Outside the gate, and always on the CPU,
+    Dense adds it after the product. Outside the gate, where the kernels
+    cannot read the cast and reshaped x as it lies (`aligned`: K, the row
+    stride and the base in 16-byte pieces), and always on the CPU,
     `F.linear`. While `kernels.plain_versions()` is open the gated products
     take the kernel's plain version."""
 
@@ -59,7 +62,10 @@ class Dense(nn.Linear):
         if not dense_route(x, self.weight):
             return F.linear(x, self.weight, self.bias)
         x_dtype, w_dtype = compute_dtypes(x, self.weight)
+        # the reshape of a strided view may copy: the rule holds on what is passed
         x2 = x.to(x_dtype).reshape(-1, x.shape[-1])
+        if not aligned(x2):
+            return F.linear(x, self.weight, self.bias)
         w = self.weight.to(w_dtype)
         b = None if self.bias is None else self.bias.to(x_dtype)
         plain = kernels.plain_active()

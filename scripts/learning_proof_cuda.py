@@ -342,7 +342,7 @@ def run(args) -> dict:
     return report
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workdir", default=None,
                    help="keep the fixture, checkpoints and runs here (default: a temporary "
@@ -361,7 +361,11 @@ def main(argv=None) -> int:
                    help="train and sample through the kernels' plain PyTorch versions "
                         "(nn.kernels.plain_versions): the same proof without the kernels")
     p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if args.steps is None:
         args.steps = 300 if args.tiny else 6000
     if args.inference_steps is None:

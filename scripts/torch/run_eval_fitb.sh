@@ -1,0 +1,7 @@
+#!/bin/sh
+# FITB evaluation recipe with the PyTorch port (reference
+# Evaluation/run_eval_fitb.sh).
+python -m difashion_tpu_torch evaluate \
+    --data_path "${DATA_PATH:-datasets/polyvore}" \
+    --gen_dir "${GEN_DIR:-generated}" --task FITB --mode "${1:-test}" \
+    --weights_dir "${EVAL_WEIGHTS:-eval_weights}" "$@" 2>&1 | tee eval_fitb.log

@@ -11,6 +11,7 @@ on a GPU machine without JAX it runs with:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from difashion_tpu_torch.nn import kernels
 from difashion_tpu_torch.nn.attention import sdpa
@@ -1001,6 +1002,79 @@ def test_dense_routes_through_the_kernel(dev):
     with torch.autocast("cuda", dtype=torch.bfloat16), torch.no_grad():
         dense(x[:, :512])
     assert kernels.LAUNCHES["skinny_matmul"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_routes_only_what_the_kernel_reads(dev, dtype):
+    """At 2048 rows the gate takes Dense(30, 100) and Dense(64, 100); the
+    kernels cannot read K = 30 (nor, in 16 bits, dx's N = 100) nor an x
+    whose row stride is off: those go to F.linear / torch.matmul, no launch
+    and no error. Each against F.linear and its autograd."""
+    from difashion_tpu_torch.nn.layers import Dense
+
+    name = "skinny_matmul" if dtype == torch.bfloat16 else "skinny_matmul_f32"
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+
+    def run(k, n, strided=False):
+        dense = Dense(k, n).to(dev)
+        # x in the compute dtype, so that autocast's cast keeps its strides
+        base = torch.randn(2048, k + (1 if strided else 0), device=dev).to(dtype)
+        x = (base[:, :k] if strided else base).requires_grad_()
+        g = torch.randn(2048, n, device=dev)
+        auto = torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == torch.bfloat16)
+        kernels.reset_launches()
+        with auto:
+            y = dense(x)
+        y.backward(g.to(y.dtype))
+        launches = kernels.LAUNCHES[name]
+        got = [y.detach(), x.grad.clone(), dense.weight.grad.clone()]
+        x.grad = dense.weight.grad = dense.bias.grad = None
+        with auto:
+            y = F.linear(x, dense.weight, dense.bias)
+        y.backward(g.to(y.dtype))
+        for a, b in zip(got, (y.detach(), x.grad, dense.weight.grad)):
+            assert _rel(a, b) <= tol
+        return launches
+
+    assert run(30, 100) == 0
+    assert run(64, 64, strided=True) == 0
+    # bf16: the kernel forward, dx plain (100 % 8); fp32: both on the kernel
+    assert run(64, 100) == (1 if dtype == torch.bfloat16 else 2)
+
+
+@pytest.mark.parametrize("kernel", ["skinny_matmul", "flash_attention", "group_norm_silu"])
+def test_kernel_launches_from_a_fresh_thread(dev, kernel):
+    """A kernel's launch as the first CUDA call of a new thread (as the dx
+    of a Dense is in the thread autograd starts for a backward): the wrapper
+    binds the device's context before its driver calls."""
+    import threading
+
+    if kernel == "skinny_matmul":
+        x, w = _mm_inputs(2048, 320, 640, torch.bfloat16, dev)
+        run = lambda: skinny_matmul(x, w, w_kn=False)
+    elif kernel == "flash_attention":
+        q, k, v = _qkv(1, 2, 256, 256, 64, torch.bfloat16, dev)
+        run = lambda: flash_attention(q, k, v)[0]
+    else:
+        x = torch.randn(2, 64, 8, 8, device=dev).to(memory_format=torch.channels_last)
+        s, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+        run = lambda: group_norm_silu(x, s, b, 32, 1e-5, "silu")
+    want = run()
+    torch.cuda.synchronize()
+    out = {}
+
+    def worker():
+        try:
+            out["y"] = run()
+            torch.cuda.synchronize()
+        except Exception as e:   # reported in the main thread
+            out["error"] = e
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and "error" not in out, out.get("error")
+    assert torch.equal(out["y"], want)
 
 
 def test_skinny_matmul_autograd_with_bias_matches_plain(dev):

@@ -389,6 +389,120 @@ def test_every_linear_is_dense():
     assert set(dict(linears[0].named_parameters())) <= {"weight", "bias"}
 
 
+# ---- what the kernels can read: the Dense route's alignment rule ----------------------
+
+def _offset_base(m, k, dtype):
+    """[m, k] whose base is one element past an aligned allocation."""
+    return torch.zeros(m * k + 1, dtype=dtype)[1:].view(m, k)
+
+
+@pytest.mark.parametrize("make,dtype,want", [
+    (lambda d: torch.zeros(2048, 64, dtype=d), torch.bfloat16, True),
+    (lambda d: torch.zeros(2048, 64, dtype=d), torch.float32, True),
+    (lambda d: torch.zeros(2048, 30, dtype=d), torch.bfloat16, False),     # K = 30
+    (lambda d: torch.zeros(2048, 30, dtype=d), torch.float32, False),
+    (lambda d: torch.zeros(2048, 100, dtype=d), torch.bfloat16, False),    # K % 8
+    (lambda d: torch.zeros(2048, 100, dtype=d), torch.float32, True),      # K % 4 == 0
+    (lambda d: torch.zeros(2048, 65, dtype=d)[:, :64], torch.bfloat16, False),  # row stride
+    (lambda d: torch.zeros(2048, 65, dtype=d)[:, :64], torch.float32, False),
+    (lambda d: torch.zeros(2048, 72, dtype=d)[:, :64], torch.bfloat16, True),   # stride 72
+    (lambda d: _offset_base(2048, 64, d), torch.bfloat16, False),         # offset base
+    (lambda d: _offset_base(2048, 64, d), torch.float32, False),
+    (lambda d: torch.zeros(64, 2048, dtype=d).t(), torch.float32, False),  # K not unit stride
+])
+def test_aligned_is_the_kernels_rule_on_x(make, dtype, want):
+    """`aligned` gives what the wrapper's `_check` takes of x: on the card a
+    product it refuses raises there, and the Dense route sends it to
+    F.linear instead."""
+    assert sm.aligned(make(dtype)) is want
+
+
+def test_dense_sends_what_the_kernel_cannot_read_to_linear(monkeypatch):
+    """With the gate forced open on the CPU: Dense(30, 100) (K = 30) and a
+    strided x whose row stride is off take F.linear, never the kernel's
+    wrapper; bf16 Dense(64, 100) takes the kernel forward and a plain dx
+    (N = 100 is no multiple of 8), fp32 Dense(64, 100) the kernel for both.
+    Each against F.linear and its autograd."""
+    calls = []
+    wrapper = sm.skinny_matmul
+
+    def counted(x, w, bias=None, *, w_kn=False):
+        calls.append("dx" if w_kn else "fwd")
+        return wrapper(x, w, bias, w_kn=w_kn)
+
+    monkeypatch.setattr(sm, "skinny_matmul", counted)
+    monkeypatch.setattr(layers, "skinny_matmul", counted)
+    monkeypatch.setattr(layers, "dense_route", lambda *_: True)
+    torch.manual_seed(3)
+
+    def run(k, n, autocast, strided=False):
+        calls.clear()
+        dense = Dense(k, n)
+        base = torch.randn(2, 1024, k + (1 if strided else 0))
+        x = (base[..., :k] if strided else base).requires_grad_()
+        g = torch.randn(2, 1024, n)
+        with torch.autocast("cpu", dtype=torch.bfloat16, enabled=autocast):
+            y = dense(x)
+        y.backward(g.to(y.dtype))
+        got = [y.detach().float(), x.grad.clone(), dense.weight.grad.clone()]
+        x.grad = dense.weight.grad = dense.bias.grad = None
+        with torch.autocast("cpu", dtype=torch.bfloat16, enabled=autocast):
+            y = F.linear(x, dense.weight, dense.bias)
+        y.backward(g.to(y.dtype))
+        want = [y.detach().float(), x.grad.clone(), dense.weight.grad.clone()]
+        tol = dict(rtol=3e-2, atol=3e-2) if autocast else TOL32
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)
+        return list(calls)
+
+    assert run(30, 100, True) == [] and run(30, 100, False) == []
+    assert run(64, 64, False, strided=True) == []
+    assert run(64, 100, True) == ["fwd"]              # dx through torch.matmul
+    assert run(64, 100, False) == ["fwd", "dx"]
+
+
+def _gated_inputs(cfg, dtype):
+    """(gated, aligned) counts over every Dense input of the towers' forwards
+    at the batches the paths run (meta device: shapes, strides, offsets),
+    each input cast and reshaped as `Dense.forward` does."""
+    with torch.device("meta"):
+        model = DiFashion(cfg)
+    seen = {"gated": 0, "aligned": 0}
+
+    def record(mod, args):
+        x2 = args[0].to(dtype).reshape(-1, args[0].shape[-1])
+        if sm.gate(x2.shape[0], mod.out_features, mod.in_features, dtype, dtype):
+            seen["gated"] += 1
+            seen["aligned"] += sm.aligned(x2)
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, Dense)]
+    u, v = cfg.unet, cfg.vae
+    meta = lambda *shape: torch.empty(*shape, device="meta")
+    with torch.no_grad(), kernels.plain_versions():
+        for b in (4, 8, 16, 64):
+            model.unet(meta(b, u.in_channels, u.sample_size, u.sample_size),
+                       torch.zeros(b, dtype=torch.long, device="meta"),
+                       meta(b, 77, u.cross_attention_dim))
+            model.vae.decode(meta(b, v.latent_channels, u.sample_size, u.sample_size))
+        model.vae.encode(meta(64, v.in_channels, v.sample_size, v.sample_size))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+@pytest.mark.parametrize("preset", ["tiny", "sd2_base", "sd15"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_preset_dense_keeps_its_route(preset, dtype):
+    """Every product of the presets that the gate takes is one the kernels
+    can read as the Dense passes it: the alignment rule moves no product of
+    tiny, sd2_base or sd15 off the kernel (the launch counts stay)."""
+    seen = _gated_inputs(getattr(ModelConfig, preset)(), dtype)
+    assert seen["aligned"] == seen["gated"]
+    if preset != "tiny":
+        assert seen["gated"] > 0
+
+
 # ---- the fp32 kernel's plain 3xTF32 version ----------------------------------------
 
 @pytest.mark.parametrize("m,k,n", SHAPES)
