@@ -8,13 +8,18 @@ own RPC layer).
   POST /generate  {"task": "FITB"|"GOR", "uids": [..], "oids": [..],
                    "outfits": [[iid x4], ...],    # 0 = a slot to generate
                    "category": [[cid x4], ...], "seed": 123}
-  -> {"images": {"<uid>/<oid>": ["<base64 jpeg>", ...]}, "latency_s": ...}
+  -> {"images": {"<uid>/<oid>": ["<base64 jpeg>", ...]}, "latency_s": ...,
+      "timings": {"lock_wait_s": ..., "device_s": ..., "jpeg_s": ...}}   # --trace
   GET /healthz -> {"status": "ok", "devices": <CUDA devices>}
 
     python -m difashion_tpu_torch serve --data_path <dir> --ckpt_dir <ckpt> \
-        [--scheduler dpmpp --num_inference_steps 20] [--device cuda|cpu]
+        [--scheduler dpmpp --num_inference_steps 20] [--device cuda|cpu] [--trace]
 
 `--scheduler dpmpp --num_inference_steps 20` is the fast-serving recipe.
+`--trace` turns the port's spans on (`core/tracing.py`) and splits each
+response's latency: the wait for the service's lock, the device half (the
+`gen.*` spans: prepare, sample, decode, the copy to the host) and the JPEG
+encode, in host seconds.
 `GenerationService.generate_images` is the device half of a request (request
 -> prepared batch -> uint8 images), `generate` adds the host half (JPEG,
 base64), which needs PIL.
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from difashion_tpu_torch.cli.common import apply_generation_overrides
+from difashion_tpu_torch.core import tracing
 from difashion_tpu_torch.engine.generate import decode_to_uint8
 
 
@@ -78,11 +84,17 @@ class GenerationService:
         uint8 images [F, H, W, 3] on the host). F includes the pad fills
         (prep.valid marks the real ones)."""
         task, batch, pad_to = self._validate(req)
-        with self._lock:
+        with tracing.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
             prep = self.pipeline.prepare_batch(batch, task, int(req.get("seed", 123)),
                                                pad_to=pad_to, pad_outfits=self.max_batch)
             latents = self.pipeline.sample(prep)
-            imgs = decode_to_uint8(self.pipeline.model, latents).cpu().numpy()
+            imgs = decode_to_uint8(self.pipeline.model, latents)
+            with tracing.span("gen.fetch"):
+                imgs = imgs.cpu().numpy()
+        finally:
+            self._lock.release()
         return prep, latents, imgs
 
     def generate(self, req: dict) -> dict:
@@ -91,14 +103,28 @@ class GenerationService:
         from PIL import Image
 
         out: dict = {}
-        for k in range(len(imgs)):
-            if not prep.valid[k]:
-                continue
-            buf = io.BytesIO()
-            Image.fromarray(imgs[k]).save(buf, format="JPEG", quality=95)
-            out.setdefault(f"{int(prep.fill_uids[k])}/{int(prep.fill_oids[k])}", []).append(
-                base64.b64encode(buf.getvalue()).decode())
-        return {"images": out, "latency_s": round(time.perf_counter() - t0, 3)}
+        with tracing.span("serve.jpeg"):
+            for k in range(len(imgs)):
+                if not prep.valid[k]:
+                    continue
+                buf = io.BytesIO()
+                Image.fromarray(imgs[k]).save(buf, format="JPEG", quality=95)
+                out.setdefault(f"{int(prep.fill_uids[k])}/{int(prep.fill_oids[k])}",
+                               []).append(base64.b64encode(buf.getvalue()).decode())
+        result = {"images": out, "latency_s": round(time.perf_counter() - t0, 3)}
+        if tracing.enabled():
+            result["timings"] = request_timings(tracing.take(threading.get_native_id()))
+        return result
+
+
+def request_timings(records) -> dict:
+    """A request's host seconds from its thread's span records: the wait for
+    the service's lock, the device half (prepare, sample, decode, the copy
+    to the host) and the JPEG encode."""
+    secs = lambda *names: sum(sum(tracing.host_ms(records, n)) for n in names) * 1e-3
+    return {"lock_wait_s": secs("serve.lock_wait"),
+            "device_s": secs("gen.prepare", "gen.sample", "gen.decode", "gen.fetch"),
+            "jpeg_s": secs("serve.jpeg")}
 
 
 def make_handler(service: GenerationService):
@@ -195,6 +221,9 @@ def parse_args(argv=None):
                    help="permit the hash-tokenizer fallback (outputs will be "
                         "meaningless; tests/throughput only)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--trace", action="store_true",
+                   help="turn the port's spans on and add each request's timings "
+                        "(lock wait, device half, JPEG encode) to its response")
     return p.parse_args(argv)
 
 
@@ -203,6 +232,8 @@ def main(argv=None):
 
     args = parse_args(argv)
     log = setup_logging()
+    if args.trace:
+        tracing.enable()
     service = build_service(args)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
     log.info("serving checkpoint-%d on %s:%d (%s)", service.checkpoint_step, args.host,

@@ -15,7 +15,13 @@ every `checkpointing_steps` and at `max_train_steps`, keeping the newest
 `checkpoints_total_limit`; the frozen towers are saved once. A resume reads
 the port's checkpoints or the JAX package's (`checkpoint.py`); the next ones
 are the port's, in the same directory. Metrics go to
-`<output_dir>/metrics.jsonl` and the trackers of `--report_to`.
+`<output_dir>/metrics.jsonl` and the trackers of `--report_to`. With
+`--trace` the port's spans are on (`core/tracing.py`), and each metrics row
+adds the mean host ms, since the last row, of assembling a batch
+(`batch_host_ms`), of the step's host sync (`sync_host_ms`), of the
+gradients' all-reduce (`allreduce_host_ms`: the host's part, which NCCL
+queues on the card; about 0 in one process) and of the blocking part of a
+checkpoint save (`checkpoint_host_ms`, in the row after the save).
 
 Data parallelism runs one process per device under torchrun:
 
@@ -45,7 +51,7 @@ import torch
 from difashion_tpu_torch.checkpoint import CheckpointStore
 from difashion_tpu_torch.cli.common import load_config, setup_logging
 from difashion_tpu_torch.config import Config
-from difashion_tpu_torch.core import distributed
+from difashion_tpu_torch.core import distributed, tracing
 from difashion_tpu_torch.core.distributed import DistInfo
 from difashion_tpu_torch.core.logging import MetricLogger, StepTimer
 from difashion_tpu_torch.data.datasets import FashionData, HistLatentStore, TrainLoader
@@ -83,6 +89,7 @@ def resolve_dp_size(dp_size: int, world: int, train_batch_size: int, log) -> int
     return world
 
 
+@tracing.traced("train.batch")
 def assemble_batch(batch: dict, moments_mean: Optional[np.ndarray],
                    moments_logvar: Optional[np.ndarray], input_ids_table: np.ndarray,
                    cid_row: dict, hist_store: HistLatentStore, scaling_factor: float,
@@ -294,12 +301,17 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
                 loss = float(m["loss"])
                 t = timer.stop(imgs_per_step * (step - synced))
                 synced = step
+                if tracing.enabled():
+                    t.update(host_means(tracing.take()))
                 metrics_log.log(step, loss=loss, grad_norm=float(m["grad_norm"]),
                                 update_skipped=float(m["update_skipped"]), **t)
                 timer.start()
+            elif not writer and tracing.enabled():
+                tracing.reset()   # no rows on this rank
             if step % tcfg.checkpointing_steps == 0 or step >= max_steps:
                 if writer:
-                    store.save_async(state, step)
+                    with tracing.span("train.checkpoint"):
+                        store.save_async(state, step)
                     log.info("saved checkpoint-%d (async)", step)
                 distributed.barrier()
             if validation_every > 0 and step % validation_every == 0:
@@ -315,6 +327,23 @@ def run_training(cfg: Config, data: FashionData, moments_mean: Optional[np.ndarr
             metrics_log.close()
     distributed.barrier()
     return state, model
+
+
+HOST_MEANS = (("train.batch", "batch_host_ms"), ("train.sync", "sync_host_ms"),
+              ("train.allreduce", "allreduce_host_ms"),
+              ("train.checkpoint", "checkpoint_host_ms"))
+
+
+def host_means(records) -> dict:
+    """The mean host ms of the loop's spans among `records` (`HOST_MEANS`:
+    assembling a batch, the step's sync, queueing the gradients' all-reduce,
+    a checkpoint's blocking part), those with any."""
+    out = {}
+    for name, key in HOST_MEANS:
+        ms = tracing.host_ms(records, name)
+        if ms:
+            out[key] = sum(ms) / len(ms)
+    return out
 
 
 def parse_args(argv=None):
@@ -349,6 +378,10 @@ def parse_args(argv=None):
     p.add_argument("--console_every", type=int, default=50,
                    help="steps between metrics rows (each a sync with the device)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--trace", action="store_true",
+                   help="turn the port's spans on and add the mean host ms of the batch, "
+                        "the step's sync, the gradients' all-reduce and the checkpoint's "
+                        "blocking part to each metrics row")
     return p.parse_args(argv)
 
 
@@ -357,6 +390,8 @@ def main(argv=None):
     this process joins the group first: NCCL on the cards, gloo with
     `--device cpu`."""
     args = parse_args(argv)
+    if args.trace:
+        tracing.enable()
     if distributed.world_size() == 1:
         return _main(args, None)
     backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"

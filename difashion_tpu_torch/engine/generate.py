@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from difashion_tpu_torch.core import tracing
 from difashion_tpu_torch.core.distributed import DistInfo, gather_rows
 from difashion_tpu_torch.diffusion.ddim import ddim_step, make_ddim_plan
 from difashion_tpu_torch.diffusion.dpmpp import dpmpp_init_state, dpmpp_step, make_dpmpp_plan
@@ -168,6 +169,7 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
     noisy_ddim = scheduler == "ddim" and ddim_eta > 0.0
 
     @torch.inference_mode()
+    @tracing.traced("gen.sample")
     def sample(inputs: GenerationInputs, generator: Optional[torch.Generator] = None,
                step_noise: Optional[torch.Tensor] = None, dp: Optional[DistInfo] = None):
         dev = inputs.init_latents.device
@@ -213,23 +215,28 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
                  else pndm_init_state(latents))
         traj = []
         for i, row in enumerate(rows):
-            mutual = model.apply_mutual(mutual_condition_input(
-                gather_rows(latents, world), outfit_idx, known, gen_mask,
-                gen_index)[mine]).to(f32)
-            mut_b = mut_sel * mutual[None] + (1.0 - mut_sel) * null_lat
-            x = (1.0 - eta) * latents[None] + eta * mut_b      # [nb, F, C, h, w]
-            x = torch.cat([x.reshape(nb * F, C, h, w), hist_flat], dim=1)
+            with tracing.span("gen.mutual"):
+                mutual = model.apply_mutual(mutual_condition_input(
+                    gather_rows(latents, world), outfit_idx, known, gen_mask,
+                    gen_index)[mine]).to(f32)
+                mut_b = mut_sel * mutual[None] + (1.0 - mut_sel) * null_lat
+                x = (1.0 - eta) * latents[None] + eta * mut_b      # [nb, F, C, h, w]
+                x = torch.cat([x.reshape(nb * F, C, h, w), hist_flat], dim=1)
             t = torch.full((nb * F,), row["t_unet"], dtype=torch.long, device=dev)
-            eps = model.apply_unet(x, t, text_flat).to(f32).reshape(nb, F, C, h, w)
-            eps = (weights * eps).sum(dim=0)                   # guidance combine
-            if scheduler == "pndm":
-                state, latents = pndm_step(state, row, eps, latents, pred_type)
-            elif scheduler == "dpmpp":
-                state, latents = dpmpp_step(state, row, eps, latents, pred_type)
-            else:
-                latents = ddim_step(row, eps, latents, eta=ddim_eta,
-                                    noise=step_noise[i] if noisy_ddim else None,
-                                    prediction_type=pred_type)
+            with tracing.span("gen.unet"):
+                eps = model.apply_unet(x, t, text_flat)
+            tracing.count("gen.unet_forwards")
+            with tracing.span("gen.scheduler"):
+                eps = eps.to(f32).reshape(nb, F, C, h, w)
+                eps = (weights * eps).sum(dim=0)               # guidance combine
+                if scheduler == "pndm":
+                    state, latents = pndm_step(state, row, eps, latents, pred_type)
+                elif scheduler == "dpmpp":
+                    state, latents = dpmpp_step(state, row, eps, latents, pred_type)
+                else:
+                    latents = ddim_step(row, eps, latents, eta=ddim_eta,
+                                        noise=step_noise[i] if noisy_ddim else None,
+                                        prediction_type=pred_type)
             if return_trajectory:
                 traj.append(latents)
 
@@ -299,6 +306,7 @@ def decode_and_postprocess(model: DiFashion, latents: torch.Tensor) -> torch.Ten
 
 
 @torch.inference_mode()
+@tracing.traced("gen.decode")
 def decode_to_uint8(model: DiFashion, latents: torch.Tensor) -> torch.Tensor:
     """`decode_and_postprocess` quantized on the device: scale, + 0.5, clip,
     truncate. [F, H, W, 3] uint8."""

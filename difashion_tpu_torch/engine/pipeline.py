@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from difashion_tpu_torch.config import Config
+from difashion_tpu_torch.core import tracing
 from difashion_tpu_torch.data.datasets import HistLatentStore, OutfitTable
 from difashion_tpu_torch.data.prompts import build_train_prompts
 from difashion_tpu_torch.engine.generate import (
@@ -133,6 +134,7 @@ class GenerationPipeline:
 
     # ------------------------------------------------------------------ prep --
 
+    @tracing.traced("gen.prepare")
     def prepare_batch(self, batch: dict, task: str, seed: int, pad_to: Optional[int] = None,
                       pad_outfits: Optional[int] = None) -> PreparedBatch:
         """batch: {uids, oids, outfits, category} host arrays; task FITB or GOR
@@ -224,7 +226,9 @@ class GenerationPipeline:
     def generate_batch(self, prep: PreparedBatch) -> np.ndarray:
         """uint8 images [F, H, W, 3] on the host (pad rows included; filter
         with prep.valid)."""
-        return self.dispatch_batch(prep).cpu().numpy()
+        imgs = self.dispatch_batch(prep)
+        with tracing.span("gen.fetch"):
+            return imgs.cpu().numpy()
 
     def run(self, table: OutfitTable, task: str, out_dir: str, run_name: str,
             grd_dict: Optional[dict] = None, batch_size: Optional[int] = None,

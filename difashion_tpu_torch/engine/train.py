@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from difashion_tpu_torch.config import TrainConfig
-from difashion_tpu_torch.core import distributed
+from difashion_tpu_torch.core import distributed, tracing
 from difashion_tpu_torch.core.distributed import DistInfo
 from difashion_tpu_torch.engine.optim8bit import AdamW8bit
 from difashion_tpu_torch.models.difashion import DiFashion
@@ -455,6 +455,7 @@ def autocast(model: DiFashion, cfg: TrainConfig):
                           enabled=cfg.mixed_precision == "bf16")
 
 
+@tracing.traced("train.update")
 def apply_gradients(state: TrainState, grads: List[torch.Tensor], optimizer,
                     cfg: TrainConfig) -> Dict[str, object]:
     """Clip, optimizer update and EMA, given the step's gradients (one per
@@ -469,7 +470,8 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor], optimizer,
     grad_norm = global_norm(grads)
     ok = True
     if cfg.skip_nonfinite_updates:
-        ok = bool(torch.isfinite(grad_norm))         # the step's one host sync
+        with tracing.span("train.sync"):
+            ok = bool(torch.isfinite(grad_norm))     # the step's one host sync
     params = state.params if z is None else z.parts(state.params)
     if ok:
         clip_by_global_norm_(grads, grad_norm, cfg.max_grad_norm)
@@ -484,6 +486,7 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor], optimizer,
     if ok and z is not None:
         z.collect_(state.params)
     state.step += 1
+    tracing.count("train.steps")
     return {"grad_norm": grad_norm, "update_skipped": 0.0 if ok else 1.0}
 
 
@@ -516,24 +519,28 @@ def accumulate_gradients(model: DiFashion, params: Sequence[torch.Tensor],
         raise ValueError(f"{B} outfits a rank do not split into {k} microbatches")
     shape, dev = latent_shape(model, batch), null_latent.device
     global_mb = B * world // k
-    per_mb = [loss_draws(model, cfg, generator, global_mb, olen, shape, dev)
-              for _ in range(k)]
-    draws = draws_rows({key: torch.cat([d[key] for d in per_mb]) for key in per_mb[0]},
-                       rank * B, (rank + 1) * B, olen)
     for p in params:
         p.grad = None
     losses = []
     for i, mb in enumerate(_split(batch, k) if k > 1 else [batch]):
-        with autocast(model, cfg):
-            loss, _ = difashion_loss(model, mb, null_latent, null_text, generator, cfg,
-                                     draws=draws_rows(draws, i * B // k, (i + 1) * B // k,
-                                                      olen))
-        loss.backward()
+        with tracing.span("train.forward"):
+            if i == 0:   # the step's draws, inside the first microbatch's forward
+                per_mb = [loss_draws(model, cfg, generator, global_mb, olen, shape, dev)
+                          for _ in range(k)]
+                draws = draws_rows({key: torch.cat([d[key] for d in per_mb])
+                                    for key in per_mb[0]}, rank * B, (rank + 1) * B, olen)
+            with autocast(model, cfg):
+                loss, _ = difashion_loss(model, mb, null_latent, null_text, generator, cfg,
+                                         draws=draws_rows(draws, i * B // k,
+                                                          (i + 1) * B // k, olen))
+        with tracing.span("train.backward"):
+            loss.backward()
         losses.append(loss.detach())
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     if k > 1:
         torch._foreach_div_(grads, float(k))
-    distributed.all_reduce_mean_(grads, world)
+    with tracing.span("train.allreduce"):
+        distributed.all_reduce_mean_(grads, world)
     return grads, losses
 
 

@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from difashion_tpu_torch.config import UNetConfig
+from difashion_tpu_torch.core import tracing
 from difashion_tpu_torch.nn.attention import Transformer2D
 from difashion_tpu_torch.nn.layers import (
     Downsample2D,
@@ -53,6 +54,7 @@ REMAT_POLICIES = {
              _aten.baddbmm.default, _aten.convolution.default),
     "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
 }
+SPANS = {ResnetBlock2D: "unet.resnet", Transformer2D: "unet.transformer"}
 
 
 class _Block(nn.Module):
@@ -137,15 +139,16 @@ class UNet2DCondition(nn.Module):
         self.gradient_checkpointing, self.remat_policy = enabled, policy
 
     def _call(self, block: nn.Module, *args, **kwargs):
-        """block(*args), checkpointed when gradient checkpointing is on and
-        autograd records."""
-        if not (self.gradient_checkpointing and torch.is_grad_enabled()):
-            return block(*args, **kwargs)
-        saved = REMAT_POLICIES[self.remat_policy]
-        if saved is not None:
-            kwargs["context_fn"] = functools.partial(
-                create_selective_checkpoint_contexts, list(saved))
-        return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        """block(*args) under the span of its type (`SPANS`), checkpointed
+        when gradient checkpointing is on and autograd records."""
+        with tracing.span(SPANS[type(block)]):
+            if not (self.gradient_checkpointing and torch.is_grad_enabled()):
+                return block(*args, **kwargs)
+            saved = REMAT_POLICIES[self.remat_policy]
+            if saved is not None:
+                kwargs["context_fn"] = functools.partial(
+                    create_selective_checkpoint_contexts, list(saved))
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
 
     @property
     def dtype(self) -> torch.dtype:

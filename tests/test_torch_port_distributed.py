@@ -476,6 +476,23 @@ def test_train_command_under_two_ranks(tmp_path):
         assert json.load(f)["step"] == 3
 
 
+def test_train_command_under_two_ranks_traces_the_allreduce(tmp_path):
+    """`--trace` under two ranks: the writer's rows carry the host ms of the
+    gradients' all-reduce (gloo reduces on the host, so it takes time) beside
+    the loop's other means."""
+    data = write_dataset(tmp_path / "data", n_rows=8)
+    out = str(tmp_path / "ckpt")
+    cfg = write_config(tmp_path / "cfg.json", dp_size=2, train_batch_size=2)
+    Ranks(["-m", "difashion_tpu_torch", "train", "--tiny", "--device", "cpu", "--config", cfg,
+           "--data_path", data, "--output_dir", out, "--max_train_steps", "2",
+           "--console_every", "1", "--trace"]).wait()
+    lines = [json.loads(s) for s in open(os.path.join(out, "metrics.jsonl"))]
+    assert [rec["step"] for rec in lines] == [1, 2]
+    for rec in lines:
+        assert rec["allreduce_host_ms"] > 0 and rec["batch_host_ms"] > 0
+        assert rec["sync_host_ms"] >= 0
+
+
 def test_train_command_without_a_group_names_torchrun(tmp_path):
     data = write_dataset(tmp_path / "data")
     cfg = write_config(tmp_path / "cfg.json", dp_size=2, train_batch_size=2)

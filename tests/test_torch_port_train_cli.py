@@ -386,6 +386,28 @@ def test_train_cli_checkpoints_prune_and_resume_bit_for_bit(tmp_path, capsys):
     assert _train(data, str(tmp_path / "other"), "--max_train_steps", "1") == 0
 
 
+def test_train_cli_trace_adds_the_loops_host_means_to_each_row(tmp_path):
+    from difashion_tpu_torch.core import tracing
+
+    data = write_dataset(tmp_path / "data")
+    out = str(tmp_path / "ckpt")
+    cfg = write_config(tmp_path / "cfg.json", checkpointing_steps=1)
+    try:
+        state, _ = _run(data, out, "--config", cfg, "--max_train_steps", "3",
+                        "--console_every", "1", "--trace")
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert state.step == 3
+    recs = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    for r in recs:
+        assert r["batch_host_ms"] > 0 and r["sync_host_ms"] >= 0
+    # a checkpoint is saved after its step's row: it shows in the next row
+    assert "checkpoint_host_ms" not in recs[0]
+    assert recs[1]["checkpoint_host_ms"] > 0 and recs[2]["checkpoint_host_ms"] > 0
+
+
 def test_train_cli_explicit_missing_step_exits_nonzero(tmp_path):
     data = write_dataset(tmp_path / "data")
     out = str(tmp_path / "ckpt")
