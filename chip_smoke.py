@@ -67,6 +67,15 @@ line each:
      N = 100; a row stride of K + 1): F.linear / torch.matmul there, no
      launch, bit for bit; Dense(64, 100)'s kernel launches beside; bf16 and
      fp32, forward and backward, against F.linear;
+  3e. kernel_geglu: the fused GEGLU kernel (GEGLU's projection, gate and
+     product in one launch; the port's own fusion, no TPU kernel) at every
+     GEGLU projection of the sampler's UNet forward (batch 16: C = 320, 640,
+     1280 at 4096, 1024, 256 and 64 tokens), bf16 and fp16, against its
+     plain version: bit for bit on inputs whose fp32 sums are exact, and
+     within one unit of the rounded sums' reach on random ones; in bf16 its
+     time, the plain version's, the unfused path's (F.linear, chunk, gelu,
+     the product: the library yardstick, never called by the port) and
+     F.linear's alone, and the bound;
   4. reference: the whole generation path at the tiny config on the card
      (fp16) against the port's CPU fp32 run of the same weights and inputs,
      with each scheduler: PNDM, DDIM (eta 0, and eta 0.5 with the same step
@@ -76,8 +85,8 @@ line each:
   6. main_path: GOR, 1 outfit of 4 items, 4-branch CFG (12 / 4 / 5),
      eta 0.1, 50-step PNDM (51 UNet forwards), text encoding and the decode
      to uint8 at 512 px; the launch counts of that run (no backward launch,
-     61 GroupNorms and 130 gated Dense products per UNet forward, 30
-     GroupNorms and 4 products in the decode);
+     61 GroupNorms, 130 gated Dense products and 16 fused GEGLUs per UNet
+     forward, 30 GroupNorms and 4 products in the decode);
   7. profile: the CUDA kernels of one UNet forward by device time, with the
      layout (NCHW <-> NHWC) and copy buckets on their own;
   7x. main_path_fp32: the main path's GOR on the sd2_base model in fp32 (the
@@ -991,6 +1000,17 @@ def path_totals(results, paths):
     return out
 
 
+def count_geglus(module):
+    """GEGLU modules in `module` whose projection, gate and product the fused
+    kernel takes in 16 bits without autograd (each runs once per forward):
+    F a multiple of the kernel's tile and K of 8 (the route's shapes)."""
+    from difashion_tpu_torch.nn.kernels.geglu_matmul import TILE_F
+    from difashion_tpu_torch.nn.layers import GEGLU
+
+    return sum(isinstance(m, GEGLU) and m.proj.out_features % (2 * TILE_F) == 0
+               and m.proj.in_features % 8 == 0 for m in module.modules())
+
+
 def count_groupnorms(module, inside=None):
     """GroupNorm modules in `module` (each runs once per forward), or only
     those inside a module of the types `inside`."""
@@ -1211,6 +1231,92 @@ def phase_kernel_mm(paths):
     if bad:
         raise AssertionError(f"skinny_matmul disagrees with its plain version at {bad}")
     return results, host
+
+
+# the fused GEGLU kernel against its plain version on random inputs: the
+# share of elements the two round apart (another order of the fp32 sums),
+# as tests/test_torch_port_cuda.py holds it
+GEGLU_APART_SHARE = {"bfloat16": 0.005, "float16": 0.02}
+
+
+def geglu_sites(cfg, batch):
+    """(M, K, F, calls per UNet forward) of the GEGLU projections of one
+    sampler UNet forward over `batch` rows: ff.net.0 of each transformer
+    block, one per self-attention, F = 4C."""
+    return [(b * sq, h * d, 4 * h * d, calls)
+            for name, b, h, sq, _, d, calls in main_path_attention_sites(cfg, batch)
+            if "self_" in name]
+
+
+def phase_kernel_geglu(cfg):
+    """The fused GEGLU kernel at every GEGLU projection of the sampler's UNet
+    forward (batch 16), in bf16 and fp16, with the projection's bias: bit
+    for bit against its plain version on inputs whose fp32 sums over K are
+    exact in any order, and on random inputs within `rounding_gap_bound` on
+    at most GEGLU_APART_SHARE of the elements. In bf16: its time at the tile
+    width of `tile_width`, the plain version's, the unfused
+    path's (`library_ms`: F.linear, chunk, F.gelu, the product, which the
+    port ran before the kernel and no longer calls), F.linear's alone, the
+    bound (2 M K 2F operations, or x, w, the bias and the F-wide output
+    once) and its share."""
+    import torch
+    import torch.nn.functional as F
+
+    from difashion_tpu_torch.nn.kernels import geglu_matmul as gg
+
+    def unfused(x, w, b):
+        h, gate = F.linear(x, w, b).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    grid = lambda lo, shape, scale, dtype: (torch.randint(-lo, lo + 1, shape, generator=gen,
+                                                          device="cuda") / scale).to(dtype)
+    results = []
+    for m, k, f, calls in geglu_sites(cfg, UNET_BATCH):
+        row = {"phase": "kernel_geglu", "mkf": [m, k, f], "calls_per_unet_forward": calls,
+               "tile_width": gg.tile_width(k), "checks": {}}
+        ok = True
+        for dtype in (torch.bfloat16, torch.float16):
+            name = str(dtype)[6:]
+            xe, we, be = (grid(8, (m, k), 8.0, dtype), grid(8, (2 * f, k), 64.0, dtype),
+                          grid(64, (2 * f,), 32.0, dtype))
+            exact = torch.equal(gg.geglu_matmul(xe, we, be), gg.geglu_matmul_ref(xe, we, be))
+            del xe, we, be
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(2 * f, k, generator=gen, device="cuda") / k ** 0.5).to(dtype)
+            b = (0.5 * torch.randn(2 * f, generator=gen, device="cuda")).to(dtype)
+            o = gg.geglu_matmul(x, w, b)
+            gap = (o.float() - gg.geglu_matmul_ref(x, w, b).float()).abs()
+            check = {"exact_equal": exact, "apart_share": (gap > 0).float().mean().item(),
+                     "within_bound": bool((gap <= gg.rounding_gap_bound(x, w, b)).all()),
+                     "max_abs_err": gap.max().item(), "finite": bool(torch.isfinite(o).all())}
+            row["checks"][name] = check
+            ok &= (exact and check["within_bound"] and check["finite"]
+                   and check["apart_share"] <= GEGLU_APART_SHARE[name])
+            del o, gap
+            if dtype == torch.bfloat16:
+                ops = 2.0 * m * k * 2 * f
+                nbytes = 2.0 * (m * k + 2 * f * k + m * f + 2 * f)
+                t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+                row.update({
+                    "ms": device_ms(lambda: gg.geglu_matmul(x, w, b)),
+                    "plain_ms": device_ms(lambda: gg.geglu_matmul_ref(x, w, b), reps=10,
+                                          warmup=1),
+                    "library_ms": device_ms(lambda: unfused(x, w, b)),
+                    "linear_ms": device_ms(lambda: F.linear(x, w, b)),
+                    "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+                row["tflops"] = ops / row["ms"] / 1e9
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+            del x, w, b
+            torch.cuda.empty_cache()
+        row["ok"] = ok
+        emit(row)
+        results.append(row)
+    bad = [r["mkf"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"geglu_matmul disagrees with its plain version at {bad}")
+    return results
 
 
 def mm_path_totals(results, paths):
@@ -1440,7 +1546,8 @@ def phase_unet(model, mm_paths):
     # the kernel path may be no farther from fp32 than the plain path, give
     # or take the spread of bf16 rounding between two runs
     want = all_counts({"flash_attention_fwd": 32, "group_norm_silu": count_groupnorms(unet),
-                       "skinny_matmul": len(mm_paths["sampler_unet"])})
+                       "skinny_matmul": len(mm_paths["sampler_unet"]),
+                       "geglu_matmul": count_geglus(unet)})
     if not (finite and rel(fast, plain) <= UNET_REL_L2_TOL and launches == want
             and fast_ref <= 1.25 * plain_ref):
         raise AssertionError(f"UNet kernel vs plain: rel L2 {rel(fast, plain)}, vs fp32 "
@@ -1512,7 +1619,8 @@ def phase_reference():
             "flash_attention_fwd": forwards * n_attn
             + sum(isinstance(m, VAEAttention) for m in cpu.vae.decoder.modules()),
             "group_norm_silu": forwards * count_groupnorms(cpu.unet)
-            + count_groupnorms(cpu.vae.decoder)})
+            + count_groupnorms(cpu.vae.decoder),
+            "geglu_matmul": forwards * count_geglus(cpu.unet)})
         out = {}
         for name, model, dev in models:
             gen = torch.Generator().manual_seed(0)
@@ -1589,7 +1697,8 @@ def phase_sd15_unet():
     fast_ref, plain_ref = rel_l2(fast, ref), rel_l2(plain, ref)
     finite = bool(torch.isfinite(fast).all() and torch.isfinite(plain).all())
     want = all_counts({"flash_attention_fwd": n_kernel,
-                       "group_norm_silu": count_groupnorms(unet), "skinny_matmul": len(mm)})
+                       "group_norm_silu": count_groupnorms(unet), "skinny_matmul": len(mm),
+                       "geglu_matmul": count_geglus(unet)})
     emit({"phase": "sd15_unet", "config": "sd15", "dtype": "bfloat16",
           "params": param_count(unet), "batch": UNET_BATCH,
           "head_dims": sorted({d for *_, d, _ in sites}), "kernel_attentions": n_kernel,
@@ -1839,6 +1948,7 @@ def phase_main_path(model, mm_paths):
     expect = (STEPS + 1) * 32
     gn_expect = (STEPS + 1) * count_groupnorms(model.unet) + count_groupnorms(model.vae.decoder)
     mm_expect = (STEPS + 1) * len(mm_paths["sampler_unet"]) + len(mm_paths["vae_decode"])
+    geglu_expect = (STEPS + 1) * count_geglus(model.unet)
     emit({"phase": "main_path", "config": "sd2_base", "dtype": "bfloat16",
           "mode": "GOR", "outfits": 1, "items": 4, "steps": STEPS,
           "unet_forwards": STEPS + 1, "cfg_branches": 4, "eta": ETA,
@@ -1846,6 +1956,7 @@ def phase_main_path(model, mm_paths):
           "latents_finite": finite, "launches": launches,
           "expected_flash_launches": expect, "expected_group_norm_launches": gn_expect,
           "expected_skinny_matmul_launches": mm_expect,
+          "expected_geglu_matmul_launches": geglu_expect,
           "seconds_per_outfit": seconds,
           "wall_seconds": wall, **ms, "ms_per_unet_step": ms["sampler_ms"] / (STEPS + 1),
           "peak_memory_bytes": peak})
@@ -1855,7 +1966,7 @@ def phase_main_path(model, mm_paths):
         raise AssertionError("main path latents are not finite")
     # generation runs under inference_mode: the forward kernels alone, no backward
     want = all_counts({"flash_attention_fwd": expect, "group_norm_silu": gn_expect,
-                       "skinny_matmul": mm_expect})
+                       "skinny_matmul": mm_expect, "geglu_matmul": geglu_expect})
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
     return launches
@@ -2068,7 +2179,8 @@ def phase_serve(model, mm_paths):
         assert 4 * fills == (SERVE_ROWS if unet == "serve_unet" else UNET_BATCH)
         return all_counts({"flash_attention_fwd": steps * 32,
                            "group_norm_silu": steps * n_gn_unet + n_gn_dec,
-                           "skinny_matmul": steps * len(mm_paths[unet]) + len(mm_paths[dec])})
+                           "skinny_matmul": steps * len(mm_paths[unet]) + len(mm_paths[dec]),
+                           "geglu_matmul": steps * count_geglus(model.unet)})
 
     def run(req):
         torch.cuda.synchronize()
@@ -2168,6 +2280,7 @@ def phase_serve(model, mm_paths):
 
 # CUDA kernel names -> what they do, first match wins
 PROFILE_CATEGORIES = [
+    ("geglu_matmul", ("geglu_matmul_kernel",)),
     ("group_norm_silu", ("gn_cluster_kernel", "gn_partials_kernel", "gn_finalize_kernel",
                          "gn_apply_kernel")),
     ("skinny_matmul", ("skinny_matmul_kernel",)),
@@ -3502,8 +3615,9 @@ class ParityProbe:
 
 def unet_kernel_calls(cfg, rows):
     """Launches of one sampler UNet forward at `rows` rows in bf16: every
-    attention on the flash forward, every GroupNorm on its kernel, and the
-    Dense products that the skinny-N gate routes (`dense_sites`)."""
+    attention on the flash forward, every GroupNorm on its kernel, the
+    Dense products that the skinny-N gate routes (`dense_sites`) and every
+    GEGLU on the fused kernel."""
     import torch
 
     from difashion_tpu_torch.models.difashion import DiFashion
@@ -3513,7 +3627,8 @@ def unet_kernel_calls(cfg, rows):
     return all_counts({
         "flash_attention_fwd": sum(c for *_, c in main_path_attention_sites(cfg, rows)),
         "group_norm_silu": count_groupnorms(unet),
-        "skinny_matmul": len(dense_sites(cfg, (("unet", "unet", rows),))["unet"])})
+        "skinny_matmul": len(dense_sites(cfg, (("unet", "unet", rows),))["unet"]),
+        "geglu_matmul": count_geglus(unet)})
 
 
 def write_parity_checkpoint(cfg, ckpt):
@@ -4494,6 +4609,33 @@ def mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
             "precompute_launches": precompute_launches["skinny_matmul"]}
 
 
+def geglu_entry(geglu_results, launches, serve_launches):
+    """The fused GEGLU kernel's entry of the kernels line: numbers per
+    sampler UNet forward (16 calls at batch 16, bf16), launches the main
+    path's and a serve request's. It replaces no TPU kernel: the JAX
+    package's GEGLU is a flax Dense, a split, gelu and a product, which XLA
+    fuses; the port's unfused path (cuBLAS, then two strided elementwise
+    passes) is the library yardstick."""
+    tot = lambda key: sum(r[key] * r["calls_per_unet_forward"] for r in geglu_results)
+    return {"name": "geglu_matmul", "route": "cuda",
+            "source": "difashion_tpu_torch/csrc/geglu_matmul.cu",
+            "replaces": None, "fuses": "nn/layers.py::GEGLU: Dense to 2F, chunk, gelu, product",
+            "launches": launches["geglu_matmul"],
+            "max_abs_err": max(c["max_abs_err"] for r in geglu_results
+                               for c in r["checks"].values()),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "bound_by": "operations", "library_ms": tot("library_ms"),
+            "library": "F.linear(x, w, b), chunk, F.gelu(gate), h * gelu: the unfused path",
+            "linear_ms": tot("linear_ms"), "share_of_bound": tot("bound_ms") / tot("ms"),
+            "per": f"one sampler UNet forward "
+                   f"({sum(r['calls_per_unet_forward'] for r in geglu_results)} calls, bf16)",
+            "serve_request_launches": {k: v["geglu_matmul"] for k, v in serve_launches.items()},
+            "shapes": [{k: r[k] for k in ("mkf", "calls_per_unet_forward", "tile_width", "ms",
+                                          "plain_ms", "library_ms", "linear_ms", "bound_ms",
+                                          "bound_share", "tflops")}
+                       for r in geglu_results]}
+
+
 def mm_f32_entry(mm32_results, mm32_host, main_fp32_launches, train_fp32, mm_paths):
     """The fp32 skinny-N kernel's entry of the kernels line: numbers per fp32
     sampler UNet forward (batch 16, each product with its bias or without)
@@ -4540,7 +4682,8 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
                  precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                  f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
                  bwd_sd15_results, train_fp32, parity_launches, proof_launches,
-                 multi_launches, mm32_results, mm32_host, main_fp32_launches, mm_paths):
+                 multi_launches, mm32_results, mm32_host, main_fp32_launches, mm_paths,
+                 geglu_results):
     """The forward's numbers are per sampler UNet forward (batch 16) and its
     launches the main path's; the backward kernels' numbers are per train
     step (batch 8, one backward per attention) and their launches one train
@@ -4551,7 +4694,8 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
     80), the backward's with the full-width fp32 step's numbers
     (`phase_train_fp32`); the GroupNorm kernel's as `gn_entry` says, the
     skinny-N kernel's as `mm_entry` says, the fp32 skinny-N kernel's as
-    `mm_f32_entry` says. Each entry also carries its
+    `mm_f32_entry` says, the fused GEGLU kernel's as `geglu_entry` says.
+    Each entry also carries its
     launches in the parity phase's generate legs (their UNet forwards), in
     one train step and one sampler forward of the learning proof, and in the
     multi_gpu phase per rank (a data-parallel step of each leg, a ZeRO-1
@@ -4622,6 +4766,7 @@ def kernels_line(results, launches, bwd_results, train_launches, gn_results,
         mm_entry(mm_results, mm_host, launches, train_launches, precompute_launches,
                  serve_launches),
         mm_f32_entry(mm32_results, mm32_host, main_fp32_launches, train_fp32, mm_paths),
+        geglu_entry(geglu_results, launches, serve_launches),
     ]
     for e in entries:
         e["parity_generate_unet_launches"] = parity_launches[e["name"]]
@@ -4675,6 +4820,7 @@ def main():
         raise AssertionError("the Dense gate routes other products in fp32 than in bf16")
     mm_results, mm_host = timed(phase_kernel_mm, mm_paths)
     mm32_results, mm32_host = timed(phase_kernel_mm_f32, mm_paths)
+    geglu_results = timed(phase_kernel_geglu, cfg)
     timed(phase_dense_alignment)
     timed(phase_reference)
     model = create_difashion(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -4686,7 +4832,8 @@ def main():
         "group_norm_silu": (launches["group_norm_silu"]
                             - count_groupnorms(model.vae.decoder)) // (STEPS + 1),
         "skinny_matmul": (launches["skinny_matmul"]
-                          - len(mm_paths["vae_decode"])) // (STEPS + 1)})
+                          - len(mm_paths["vae_decode"])) // (STEPS + 1),
+        "geglu_matmul": launches["geglu_matmul"] // (STEPS + 1)})
     timed(phase_profile, model)
     serve_launches = timed(phase_serve, model, mm_paths)
     precompute_launches = timed(phase_precompute, model, mm_paths)
@@ -4731,7 +4878,8 @@ def main():
                       precompute_launches, mm_results, mm_host, serve_launches, sd15_results,
                       f32_results, sd15_f32_results, bwd_f32_results, f32_launches,
                       bwd_sd15_results, train_fp32, parity_launches, proof_launches,
-                      multi_launches, mm32_results, mm32_host, main_fp32_launches, mm_paths))
+                      multi_launches, mm32_results, mm32_host, main_fp32_launches, mm_paths,
+                      geglu_results))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -8,14 +8,16 @@ the package imports on machines without a GPU or a CUDA toolkit.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper has made (the fp32
 flash source's three kernels and the fp32 skinny-N kernel under names of
-their own, so that the 16-bit counts of a path stay exact). A run resets it with `reset_launches()` and
-reads it afterwards to show which kernels a path went through.
+their own, so that the 16-bit counts of a path stay exact; the fused GEGLU
+kernel under its own, apart from the skinny-N kernel's). A run resets it
+with `reset_launches()` and reads it afterwards to show which kernels a path
+went through.
 
 `plain_versions()` is the one switch between the kernels and their plain
 PyTorch versions: while it is open, the kernels' callers (`nn.attention.sdpa`,
-`nn.layers.GroupNorm`, `nn.layers.Dense`) compute the plain versions on any
-device, so that a run can hold the kernel path against it. The wrappers
-themselves never read it.
+`nn.layers.GroupNorm`, `nn.layers.Dense`, `nn.layers.GEGLU`) compute the
+plain versions on any device, so that a run can hold the kernel path against
+it. The wrappers themselves never read it.
 """
 from __future__ import annotations
 
@@ -35,10 +37,11 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-           "flash_attention_f32", "group_norm_silu", "skinny_matmul", "skinny_matmul_f32")
+           "flash_attention_f32", "group_norm_silu", "skinny_matmul", "skinny_matmul_f32",
+           "geglu_matmul")
 COUNTERS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
             "flash_attention_fwd_f32", "flash_attention_dq_f32", "flash_attention_dkv_f32",
-            "group_norm_silu", "skinny_matmul", "skinny_matmul_f32")
+            "group_norm_silu", "skinny_matmul", "skinny_matmul_f32", "geglu_matmul")
 LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -55,8 +58,8 @@ def reset_launches() -> None:
 @contextlib.contextmanager
 def plain_versions() -> Iterator[None]:
     """Within this context every kernel's caller (`sdpa`, `GroupNorm`,
-    `Dense`) computes the kernel's plain version instead, forward and
-    backward. The flag is process-wide, not
+    `Dense`, `GEGLU`) computes the kernel's plain version instead, forward
+    and backward. The flag is process-wide, not
     per thread, because autograd runs a CUDA backward (and the recompute of a
     checkpointed block) on a thread of its own: run the backward of a plain
     forward inside the context too."""

@@ -18,6 +18,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from difashion_tpu_torch.nn import kernels
+from difashion_tpu_torch.nn.kernels.geglu_matmul import (
+    geglu_matmul,
+    geglu_matmul_ref,
+    geglu_route,
+)
 from difashion_tpu_torch.nn.kernels.groupnorm import (
     ACTS,
     GroupNormSiLU,
@@ -198,13 +203,29 @@ class Upsample2D(nn.Module):
 
 
 class GEGLU(nn.Module):
-    """Linear to 2*dim_out, split, h * gelu(gate) with the exact gelu."""
+    """Linear to 2*dim_out, split, h * gelu(gate) with the exact gelu.
+
+    Where `geglu_route` takes the call (CUDA, one 16-bit compute dtype,
+    dim_out a multiple of the kernel's tile, autograd not recording) and the
+    kernel reads the cast and reshaped x as it lies (`aligned`), the three
+    steps are one launch of the fused kernel (`geglu_matmul`), which rounds
+    as the JAX GEGLU does; while `kernels.plain_versions()` is open, its
+    plain version. Otherwise, training and fp32 and the CPU among them, the
+    projection (a `Dense`), the split, the gelu and the product."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.proj = Dense(dim_in, dim_out * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.proj.weight, self.proj.bias
+        if geglu_route(x, w, b):
+            x_dtype, w_dtype = compute_dtypes(x, w)
+            x2 = x.to(x_dtype).reshape(-1, x.shape[-1])
+            if aligned(x2):
+                fused = geglu_matmul_ref if kernels.plain_active() else geglu_matmul
+                y = fused(x2, w.to(w_dtype), None if b is None else b.to(x_dtype))
+                return y.reshape(x.shape[:-1] + (w.shape[0] // 2,))
         h, gate = self.proj(x).chunk(2, dim=-1)
         return h * F.gelu(gate)
 

@@ -1,6 +1,6 @@
 """The CUDA kernels (flash-attention forward, dQ, dK/dV in 16 bits and in fp32;
-GroupNorm + SiLU; the skinny-N matmul in 16 bits and in fp32) against their
-plain versions, on the card, with TF32 off.
+GroupNorm + SiLU; the skinny-N matmul in 16 bits and in fp32; the fused
+GEGLU) against their plain versions, on the card, with TF32 off.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with the CUDA toolkit, is
 marked `cuda`, and skips elsewhere. The module imports torch only (no JAX), so
@@ -329,7 +329,7 @@ def test_sdpa_autograd_routes_through_the_kernels(dev):
                                       "flash_attention_dkv": 1, "flash_attention_fwd_f32": 0,
                                       "flash_attention_dq_f32": 0, "flash_attention_dkv_f32": 0,
                                       "group_norm_silu": 0, "skinny_matmul": 0,
-                                      "skinny_matmul_f32": 0}
+                                      "skinny_matmul_f32": 0, "geglu_matmul": 0}
     grads = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
@@ -1140,6 +1140,142 @@ def test_skinny_matmul_autograd_matches_plain(dev):
     x.grad = w.grad = None
     SkinnyMatmul.apply(x, w, True).backward(g)
     assert _mm_close(dx, x.grad, torch.bfloat16) and torch.equal(dw, w.grad)
+
+
+# GEGLU's projections of a UNet forward at sd2_base and sd15 (the same widths:
+# C = 320, 640, 1280 at 4096, 1024, 256 and 64 tokens), M cut to 8192 rows,
+# and ragged ones: (M, K, F), the weight [2F, K]
+GEGLU_SHAPES = [(8192, 320, 1280), (8192, 640, 2560), (8192, 1280, 5120), (4096, 1280, 5120),
+                (4100, 1280, 5120), (1000, 96, 128), (130, 40, 256)]
+# the share of elements on which the kernel and its plain version (cuBLAS's
+# fp32 product, another order of the sums) round apart on random inputs: at
+# most 0.13 % in bf16 and 1.1 % in fp16 at K = 1280 on the H100, each within
+# `rounding_gap_bound`
+GEGLU_APART_SHARE = {torch.bfloat16: 0.005, torch.float16: 0.02}
+
+
+def _geglu_inputs(m, k, f, dtype, dev, exact, seed=0):
+    """x [M, K], w [2F, K], bias [2F]: random, or (`exact`) on grids whose
+    fp32 sums over K are exact in any order (multiples of 2^-9 below 2^8),
+    so that the kernel and the plain version round the same sums."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if exact:
+        grid = lambda lo, shape, scale: (torch.randint(-lo, lo + 1, shape, generator=g,
+                                                       device=dev) / scale).to(dtype)
+        return grid(8, (m, k), 8.0), grid(8, (2 * f, k), 64.0), grid(64, (2 * f,), 32.0)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = (torch.randn(2 * f, k, generator=g, device=dev) / k ** 0.5).to(dtype)
+    return x, w, (0.5 * torch.randn(2 * f, generator=g, device=dev)).to(dtype)
+
+
+@pytest.mark.parametrize("m,k,f", GEGLU_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_geglu_matmul_kernel_matches_plain(dev, m, k, f, dtype):
+    """The fused kernel at every tile width it is built for, with and
+    without a bias: bit for bit where the sums are exact; on
+    random inputs apart on at most GEGLU_APART_SHARE of the elements, each
+    by no more than one unit of the rounded sums carries to the output; one
+    launch per call through the wrapper, counted as geglu_matmul only."""
+    from difashion_tpu_torch.nn.kernels import geglu_matmul as gg
+
+    xe, we, be = _geglu_inputs(m, k, f, dtype, dev, exact=True)
+    x, w, b = _geglu_inputs(m, k, f, dtype, dev, exact=False, seed=1)
+    for bias_e, bias in ((be, b), (None, None)):
+        want_e, want = gg.geglu_matmul_ref(xe, we, bias_e), gg.geglu_matmul_ref(x, w, bias)
+        bound = gg.rounding_gap_bound(x, w, bias)
+        for bn in gg.TILE_WIDTHS:
+            got = gg.launch(xe, we, bias_e, bn)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (m, f) and got.is_contiguous()
+            assert torch.equal(got, want_e), bn
+            gap = (gg.launch(x, w, bias, bn).float() - want.float()).abs()
+            assert (gap > 0).float().mean() <= GEGLU_APART_SHARE[dtype], bn
+            assert bool((gap <= bound).all()), bn
+    kernels.reset_launches()
+    o = gg.geglu_matmul(x, w, b)
+    torch.cuda.synchronize()
+    assert {c: v for c, v in kernels.LAUNCHES.items() if v} == {"geglu_matmul": 1}
+    assert torch.equal(o, gg.launch(x, w, b, gg.tile_width(k)))
+    # a row stride wider than K (a view into a wider tensor) reads in place
+    wide = torch.zeros(m, k + 8, dtype=dtype, device=dev)
+    wide[:, :k] = x
+    assert torch.equal(gg.geglu_matmul(wide[:, :k], w, b), o)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_geglu_gelu_is_torch_gelu_at_every_input(dev, dtype):
+    """The epilogue's gelu (round(gelu(v)), erff in fp32) at all 65,536
+    16-bit patterns against PyTorch's GELU on the card, bit for bit (NaNs as
+    NaNs: their bits are the converters')."""
+    from difashion_tpu_torch.nn.kernels import geglu_matmul as gg
+
+    patterns = torch.arange(65536, dtype=torch.int32, device=dev)
+    patterns = torch.where(patterns >= 32768, patterns - 65536, patterns).to(torch.int16)
+    got = gg.gelu_all(dtype, dev)
+    want = F.gelu(patterns.view(dtype).float()).to(dtype).view(torch.int16)
+    nan = torch.isnan(got.view(dtype)) & torch.isnan(want.view(dtype))
+    assert bool(((got == want) | nan).all())
+    assert int(nan.sum()) == int(torch.isnan(want.view(dtype)).sum()) > 0
+
+
+def test_geglu_matmul_wrapper_rejects(dev):
+    from difashion_tpu_torch.nn.kernels import geglu_matmul as gg
+
+    x, w, b = _geglu_inputs(512, 64, 128, torch.bfloat16, dev, exact=False)
+    with pytest.raises(TypeError):
+        gg.geglu_matmul(x.float(), w.float(), b.float())          # fp32
+    with pytest.raises(ValueError):
+        gg.geglu_matmul(x, w[:192], b[:192])                      # F = 96
+    with pytest.raises(ValueError):
+        gg.geglu_matmul(x[:, :60], w[:, :60].contiguous(), b)     # K % 8
+    with pytest.raises(ValueError):
+        gg.geglu_matmul(x, w, b.cpu())
+    with pytest.raises(ValueError):
+        gg.geglu_matmul(x, w.cpu(), b)
+
+
+def test_geglu_routes_per_unet_forward(dev):
+    """An sd2_base UNet forward (2 rows) in bf16: 16 fused launches without
+    autograd, the skinny-N kernel's launches as many as on the unfused path
+    (the route patched off), and the output within the unfused path's
+    rounding; under autograd (bf16 autocast over fp32 weights, the train
+    step's forward) no fused launch."""
+    from difashion_tpu_torch.config import ModelConfig
+    from difashion_tpu_torch.models.unet import UNet2DCondition
+    from difashion_tpu_torch.nn import layers
+
+    cfg = ModelConfig.sd2_base().unet
+    torch.manual_seed(0)
+    unet = UNet2DCondition(cfg).to(dev)
+    for mod in unet.modules():   # the residual branches' outputs are not zero here
+        if isinstance(mod, layers.GEGLU):
+            torch.nn.init.normal_(mod.proj.bias, std=0.5)
+    s = cfg.sample_size
+    x = torch.randn(2, cfg.in_channels, s, s, device=dev)
+    t = torch.tensor([10, 700], device=dev)
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, device=dev)
+    counts = {}
+    unet16 = UNet2DCondition(cfg).to(dev).to(torch.bfloat16)
+    unet16.load_state_dict(unet.state_dict())
+    route = layers.geglu_route
+    with torch.inference_mode():
+        for name, patched in (("fused", route), ("unfused", lambda *a: False)):
+            layers.geglu_route = patched
+            try:
+                kernels.reset_launches()
+                counts[name] = (unet16(x.bfloat16(), t, ctx.bfloat16()).float(),
+                                dict(kernels.LAUNCHES))
+            finally:
+                layers.geglu_route = route
+    (fused, n_fused), (unfused, n_unfused) = counts["fused"], counts["unfused"]
+    assert n_fused["geglu_matmul"] == 16 and n_unfused["geglu_matmul"] == 0
+    assert n_fused["skinny_matmul"] == n_unfused["skinny_matmul"] > 0
+    assert _rel(fused, unfused) <= 2e-2
+    kernels.reset_launches()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = unet(x, t, ctx)
+    y.float().square().mean().backward()
+    assert kernels.LAUNCHES["geglu_matmul"] == 0 and kernels.LAUNCHES["skinny_matmul"] > 0
 
 
 def _tiny_train_dataset(path, n_items=16):
