@@ -1515,7 +1515,7 @@ def phase_unet(model, mm_paths):
     import torch
 
     from difashion_tpu_torch.nn import kernels
-    from difashion_tpu_torch.weights import TOWERS, param_count
+    from difashion_tpu_torch.weights import param_count, towers_of
 
     unet = model.unet
     cfg = unet.config
@@ -1539,7 +1539,7 @@ def phase_unet(model, mm_paths):
     fast_ref, plain_ref = rel(fast, ref), rel(plain, ref)
     finite = bool(torch.isfinite(fast).all() and torch.isfinite(plain).all())
     emit({"phase": "unet", "config": "sd2_base", "dtype": "bfloat16",
-          "params": {tower: param_count(getattr(model, tower)) for tower in TOWERS},
+          "params": {tower: param_count(getattr(model, tower)) for tower in towers_of(model)},
           "batch": UNET_BATCH, "out_shape": list(fast.shape), "rel_l2": rel(fast, plain),
           "kernel_vs_fp32_rel_l2": fast_ref, "plain_vs_fp32_rel_l2": plain_ref,
           "finite": finite, "kernel_launches": launches})

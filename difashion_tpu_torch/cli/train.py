@@ -405,6 +405,11 @@ def main(argv=None):
 def _main(args, dp: Optional[DistInfo]):
     device = dp.device if dp is not None else args.device
     cfg = load_config(args.config, args.tiny)
+    if cfg.model.added_conditioning:
+        raise SystemExit(
+            "the train command trains SD-family configs only: this config has a second text "
+            "tower and the UNet's added time / text conditioning (SDXL), which the train step, "
+            "its loss and its checkpoints do not carry; such a config runs on the generation path only")
     overrides = {k: getattr(args, k) for k in ("max_train_steps", "learning_rate",
                                                "train_batch_size", "eta", "snr_gamma",
                                                "resume_from_checkpoint")

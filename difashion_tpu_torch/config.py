@@ -2,16 +2,21 @@
 training recipe, the generation and data settings, and the `Config` tree over
 them with its JSON form.
 
-Copies of `difashion_tpu/core/config.py` (same fields, same defaults, same
-presets, the same JSON), kept here so the port imports nothing of the JAX
-package.
+The JAX package's `difashion_tpu/core/config.py` with fields of the port's
+own, kept here so the port imports nothing of the JAX package. Every field
+the JAX package has is here with its default, its presets and its JSON; the
+port adds what the SDXL UNet needs (per-level transformer depth,
+the added time / text conditioning, a second text tower and the hidden state
+the context takes), each defaulting to the SD behaviour, so the SD presets
+are the JAX package's with those fields at their defaults. `from_dict`
+ignores keys it does not know, as the JAX package's does.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -44,6 +49,23 @@ class UNetConfig:
     norm_num_groups: int = 32
     freq_shift: int = 0
     flip_sin_to_cos: bool = True
+    # the port's own (SDXL): BasicTransformerBlocks per Transformer2D, one
+    # number or one per level (the mid block takes the last level's, the up
+    # blocks the levels' in reverse)
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
+    # "text_time": the pooled text embedding and the sinusoidal embedding
+    # (addition_time_embed_dim wide) of each time id, concatenated
+    # (projection_class_embeddings_input_dim wide: the pooled width + 6 x
+    # addition_time_embed_dim, which ModelConfig checks), through Linear,
+    # SiLU, Linear and added to the time embedding
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: Optional[int] = None
+    projection_class_embeddings_input_dim: Optional[int] = None
+
+    def level_depth(self, level: int) -> int:
+        """Transformer blocks per Transformer2D at down level `level`."""
+        d = self.transformer_layers_per_block
+        return d if isinstance(d, int) else d[level]
 
     @staticmethod
     def tiny() -> "UNetConfig":
@@ -98,6 +120,14 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-5
+    # the port's own (SDXL): the width of `text_projection` (no bias) over
+    # the final-LayerNorm state at the EOS position, the pooled embedding
+    # (None: no projection); and the hidden state the context takes, as
+    # transformers indexes `hidden_states` (-2: the penultimate layer's
+    # output, before the final LayerNorm), None for the last hidden state
+    # after the final LayerNorm
+    projection_dim: Optional[int] = None
+    context_hidden_state: Optional[int] = None
 
     @staticmethod
     def tiny() -> "CLIPTextConfig":
@@ -147,6 +177,37 @@ class ModelConfig:
     text: CLIPTextConfig = field(default_factory=CLIPTextConfig)
     mutual: MutualEncoderConfig = field(default_factory=MutualEncoderConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    # the port's own (SDXL): a second text tower; the context is the two
+    # towers' contexts concatenated, the pooled embedding this tower's
+    text_2: Optional[CLIPTextConfig] = None
+
+    def __post_init__(self):
+        """The second tower and the UNet's added conditioning come together,
+        and the added embedding's input is the pooled width and six time
+        embeddings."""
+        unet, text_2 = self.unet, self.text_2
+        if (text_2 is None) != (unet.addition_embed_type is None):
+            raise ValueError(
+                "a second text tower (text_2) and the UNet's added conditioning "
+                "(unet.addition_embed_type) come together: "
+                f"text_2 is {'set' if text_2 else 'None'}, addition_embed_type is "
+                f"{unet.addition_embed_type!r}")
+        if text_2 is not None:
+            if text_2.projection_dim is None or unet.addition_time_embed_dim is None:
+                raise ValueError("the added conditioning needs text_2.projection_dim and "
+                                 "unet.addition_time_embed_dim")
+            want = text_2.projection_dim + 6 * unet.addition_time_embed_dim
+            if unet.projection_class_embeddings_input_dim != want:
+                raise ValueError(
+                    f"unet.projection_class_embeddings_input_dim is "
+                    f"{unet.projection_class_embeddings_input_dim}, not text_2.projection_dim "
+                    f"+ 6 x addition_time_embed_dim = {want}")
+
+    @property
+    def added_conditioning(self) -> bool:
+        """The SDXL conditioning: a second text tower and the UNet's added
+        time / text embedding (`__post_init__` holds them together)."""
+        return self.text_2 is not None
 
     @staticmethod
     def sd2_base() -> "ModelConfig":
@@ -181,6 +242,78 @@ class ModelConfig:
             latent_channels=4, latent_size=unet.sample_size, hid_dim=32
         )
         return ModelConfig(unet=unet, vae=vae, text=text, mutual=mutual)
+
+    @staticmethod
+    def sdxl_base() -> "ModelConfig":
+        """SDXL base 1.0 (stabilityai/stable-diffusion-xl-base-1.0) with
+        DiFashion's 8-channel conv_in: 3 levels with 1 / 2 / 10 transformer
+        blocks (70 a forward), d = 64 heads, linear projections, a 2048-wide
+        context from CLIP ViT-L and OpenCLIP ViT-bigG (each one's
+        penultimate state), the added time / text conditioning, 128x128
+        latents (1024 px), the VAE at scaling factor 0.13025."""
+        return ModelConfig(
+            unet=UNetConfig(
+                sample_size=128,
+                block_out_channels=(320, 640, 1280),
+                cross_attention_dim=2048,
+                down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                                  "CrossAttnDownBlock2D"),
+                up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+                transformer_layers_per_block=(1, 2, 10),
+                addition_embed_type="text_time",
+                addition_time_embed_dim=256,
+                projection_class_embeddings_input_dim=2816,
+            ),
+            vae=VAEConfig(scaling_factor=0.13025, sample_size=1024),
+            text=CLIPTextConfig(
+                hidden_size=768,
+                intermediate_size=3072,
+                num_layers=12,
+                num_heads=12,
+                hidden_act="quick_gelu",
+                context_hidden_state=-2,
+            ),
+            text_2=CLIPTextConfig(
+                hidden_size=1280,
+                intermediate_size=5120,
+                num_layers=32,
+                num_heads=20,
+                projection_dim=1280,
+                context_hidden_state=-2,
+            ),
+            mutual=MutualEncoderConfig(latent_size=128),
+        )
+
+    @staticmethod
+    def tiny_xl() -> "ModelConfig":
+        """The SDXL topology in miniature for CPU tests: 3 levels with
+        unequal per-level depth (1 / 2 / 3), d = 16 heads, the added
+        conditioning, two text towers (penultimate contexts, the second's
+        pooled projection), 8x8 latents, 64 px images."""
+        unet = UNetConfig(
+            sample_size=8,
+            block_out_channels=(32, 64, 64),
+            layers_per_block=1,
+            cross_attention_dim=48,
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+            norm_num_groups=8,
+            attention_head_dim=16,
+            transformer_layers_per_block=(1, 2, 3),
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=16 + 6 * 8,
+        )
+        text = dataclasses.replace(CLIPTextConfig.tiny(), context_hidden_state=-2,
+                                   hidden_act="quick_gelu")
+        text_2 = dataclasses.replace(CLIPTextConfig.tiny(), hidden_size=16,
+                                     intermediate_size=48, num_layers=3,
+                                     projection_dim=16, context_hidden_state=-2)
+        return ModelConfig(unet=unet, vae=dataclasses.replace(VAEConfig.tiny(),
+                                                              scaling_factor=0.13025),
+                           text=text, text_2=text_2,
+                           mutual=MutualEncoderConfig(latent_channels=4, latent_size=8,
+                                                      hid_dim=32))
 
 
 @dataclass(frozen=True)
@@ -312,6 +445,7 @@ _SUBCONFIGS = {
     "unet": UNetConfig,
     "vae": VAEConfig,
     "text": CLIPTextConfig,
+    "text_2": CLIPTextConfig,
     "mutual": MutualEncoderConfig,
     "scheduler": SchedulerConfig,
     "model": ModelConfig,

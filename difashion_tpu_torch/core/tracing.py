@@ -14,15 +14,19 @@ written to disk.
 The spans (each in the function that does the work):
   gen.prepare, gen.sample (gen.mutual, gen.unet, gen.scheduler each
   iteration), gen.decode, gen.fetch; unet.resnet and unet.transformer
-  (every block of a UNet forward); train.forward, train.backward,
-  train.allreduce (the gradients' mean over the ranks; nothing to reduce in
-  one process), train.update (with train.sync, the step's host sync);
+  (every block of a UNet forward); unet.add_embedding (SDXL's added
+  time / text conditioning, each forward that has it); text.encode (the
+  bundle's text encode, both towers where there are two); train.forward,
+  train.backward, train.allreduce (the gradients' mean over the ranks;
+  nothing to reduce in one process), train.update (with train.sync, the step's host sync);
   train.batch and train.checkpoint (the train command's loop);
   serve.lock_wait and serve.jpeg (the generation service).
 
 Counters count whether spans are on or off, as `nn/kernels.LAUNCHES`
-counts launches: `gen.unet_forwards` (one per sampler iteration) and
-`train.steps` (one per applied or skipped update)."""
+counts launches: `gen.unet_forwards` (one per sampler iteration),
+`unet.transformer_blocks` (the BasicTransformerBlocks each UNet forward
+runs: 16 an sd2_base forward, 70 an SDXL one) and `train.steps` (one
+per applied or skipped update)."""
 from __future__ import annotations
 
 import contextlib

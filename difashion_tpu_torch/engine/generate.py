@@ -7,7 +7,9 @@ Each iteration of the loop:
     generated slot, the clean catalog latent for a known one) and runs the
     MutualEncoder on it;
   * runs ONE UNet forward over all CFG branches x fill slots
-    ([n_branches * F, 8, h, w]: the eta-mixed latent and the history latent);
+    ([n_branches * F, 8, h, w]: the eta-mixed latent and the history latent;
+    with SDXL's added conditioning also each row's pooled text embedding,
+    blended per branch as the context is, and the time ids);
   * combines the branches with the `GuidanceSpec` weights;
   * takes the scheduler's update: PNDM (PLMS, the reference's), DDIM, or
     DPM-Solver++(2M) (the fast-serving scheduler).
@@ -135,6 +137,10 @@ class GenerationInputs(NamedTuple):
     cate_text: torch.Tensor      # [F, 77, D]         encoded category prompts
     null_text: torch.Tensor      # [77, D]            encoded empty prompt
     null_latent: torch.Tensor    # [h, w, C]          VAE latent of the white null image
+    # SDXL's added conditioning (None without it)
+    cate_pooled: Optional[torch.Tensor] = None   # [F, P]  pooled category prompts
+    null_pooled: Optional[torch.Tensor] = None   # [P]     pooled empty prompt
+    time_ids: Optional[torch.Tensor] = None      # [6]     every row's time ids
 
 
 def build_sampler(model: DiFashion, *, num_inference_steps: int,
@@ -210,6 +216,13 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
         text_b = (text_sel * inputs.cate_text.to(f32)[None]
                   + (1.0 - text_sel) * inputs.null_text.to(f32)[None, None])
         text_flat = text_b.reshape((nb * F,) + text_b.shape[2:])
+        added = {}
+        if inputs.cate_pooled is not None:
+            pooled_sel = sel(spec.text_sel, 2)
+            pooled_b = (pooled_sel * inputs.cate_pooled.to(f32)[None]
+                        + (1.0 - pooled_sel) * inputs.null_pooled.to(f32)[None, None])
+            added = {"text_embeds": pooled_b.reshape(nb * F, -1),
+                     "time_ids": inputs.time_ids.to(f32)[None].expand(nb * F, -1)}
 
         state = (dpmpp_init_state(latents) if scheduler == "dpmpp"
                  else pndm_init_state(latents))
@@ -224,7 +237,7 @@ def build_sampler(model: DiFashion, *, num_inference_steps: int,
                 x = torch.cat([x.reshape(nb * F, C, h, w), hist_flat], dim=1)
             t = torch.full((nb * F,), row["t_unet"], dtype=torch.long, device=dev)
             with tracing.span("gen.unet"):
-                eps = model.apply_unet(x, t, text_flat)
+                eps = model.apply_unet(x, t, text_flat, **added)
             tracing.count("gen.unet_forwards")
             with tracing.span("gen.scheduler"):
                 eps = eps.to(f32).reshape(nb, F, C, h, w)
@@ -254,7 +267,8 @@ def pad_generation_inputs(inputs: GenerationInputs, n: int) -> GenerationInputs:
     Inert rows never feed back into real slots: the mutual gather reads only
     the slots that the real outfits' gen_mask and gen_index address, and a
     padded outfit generates nothing. Rows of the sampler's output at or past
-    the original F are padding: slice them off (`latents[:F]`)."""
+    the original F are padding: slice them off (`latents[:F]`). The pooled
+    category prompts (SDXL) are padded as the fills are."""
     F = int(inputs.init_latents.shape[0])
     B = int(inputs.gen_mask.shape[0])
     Fp = -(-F // n) * n
@@ -270,6 +284,7 @@ def pad_generation_inputs(inputs: GenerationInputs, n: int) -> GenerationInputs:
         outfit_idx=pad(inputs.outfit_idx, Fp),
         hist_latents=pad(inputs.hist_latents, Fp),
         cate_text=pad(inputs.cate_text, Fp),
+        cate_pooled=None if inputs.cate_pooled is None else pad(inputs.cate_pooled, Fp),
         known_latents=pad(inputs.known_latents, Bp),
         gen_mask=pad(inputs.gen_mask, Bp),
         gen_index=pad(inputs.gen_index, Bp),
@@ -293,6 +308,7 @@ def shard_generation_inputs(inputs: GenerationInputs, rank: int,
     return inputs._replace(
         init_latents=fill(inputs.init_latents), outfit_idx=fill(inputs.outfit_idx),
         hist_latents=fill(inputs.hist_latents), cate_text=fill(inputs.cate_text),
+        cate_pooled=None if inputs.cate_pooled is None else fill(inputs.cate_pooled),
         known_latents=outfit(inputs.known_latents), gen_mask=outfit(inputs.gen_mask),
         gen_index=outfit(inputs.gen_index))
 

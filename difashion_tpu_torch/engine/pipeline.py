@@ -10,7 +10,10 @@ on-disk contract:
   <...>_grd.npy      grd manifest {uid: {oid: {outfits, image_paths}}}
   <...>.config.json  the run's settings
 
-The category prompts are one 50-row text table, encoded once. A batch runs
+The category prompts are one 50-row text table, encoded once (with SDXL's
+second text tower the table also holds each prompt's pooled embedding, and
+every row's time ids are (height, width, 0, 0, height, width): the image's
+size as the original and the target, no crop). A batch runs
 the sampler, the VAE decode and the uint8 quantization on the device with no
 host sync until its images are fetched, so `run` dispatches batch i + 1
 before it writes batch i. Ragged batches are padded to fixed fill and outfit
@@ -124,10 +127,18 @@ class GenerationPipeline:
         ids = tokenizer(build_train_prompts(cids, id_cate_dict))
         self.cid_row = {c: i for i, c in enumerate(cids)}
         with torch.inference_mode():
-            encode = lambda a: model.encode_text(
-                torch.from_numpy(np.asarray(a)).long().to(self.device)).float()
-            self.cate_emb = encode(ids)                  # [n_cates, 77, D]
-            self.null_emb = encode(tokenizer([""]))[0]   # [77, D]
+            def encode(a):
+                ctx, pool = model.encode_text(
+                    torch.from_numpy(np.asarray(a)).long().to(self.device), pooled=True)
+                return ctx.float(), None if pool is None else pool.float()
+
+            self.cate_emb, self.cate_pooled = encode(ids)     # [n_cates, 77, D], [n_cates, P]
+            null_emb, null_pooled = encode(tokenizer([""]))
+            self.null_emb = null_emb[0]                        # [77, D]
+            self.null_pooled = None if null_pooled is None else null_pooled[0]   # [P]
+        self.time_ids = (None if self.cate_pooled is None else torch.tensor(
+            [g.height, g.width, 0, 0, g.height, g.width], dtype=torch.float32,
+            device=self.device))
         self.sampler = build_sampler(
             model, num_inference_steps=g.num_inference_steps, spec=self.spec, eta=g.eta,
             scheduler=g.scheduler, ddim_eta=g.ddim_eta)
@@ -197,6 +208,7 @@ class GenerationPipeline:
         dev = self.device
         on_dev = lambda a, dtype=torch.float32: torch.from_numpy(
             np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+        rows = on_dev(cate_rows, torch.long)
         inputs = GenerationInputs(
             init_latents=on_dev(init),
             outfit_idx=on_dev(outfit_idx, torch.long),
@@ -204,9 +216,12 @@ class GenerationPipeline:
             gen_mask=on_dev(gen_mask, torch.bool),
             gen_index=on_dev(gen_index, torch.long),
             hist_latents=on_dev(hist),
-            cate_text=self.cate_emb[on_dev(cate_rows, torch.long)],
+            cate_text=self.cate_emb[rows],
             null_text=self.null_emb,
             null_latent=on_dev(self.null_latent),
+            cate_pooled=None if self.cate_pooled is None else self.cate_pooled[rows],
+            null_pooled=self.null_pooled,
+            time_ids=self.time_ids,
         )
         return PreparedBatch(inputs=inputs, fill_uids=fill_uids, fill_oids=fill_oids,
                              fill_cate=fill_cate, full_cate=full_cate,

@@ -2,8 +2,19 @@
 `difashion_tpu/models/clip_text.py`: token + position embeddings, pre-LN
 layers with causal attention (plain torch, q scaled before the product),
 LayerNorms in fp32, a final LayerNorm; returns the last hidden state.
+
+SDXL's towers (the port's own): the context is the hidden state that
+`CLIPTextConfig.context_hidden_state` names (-2: the penultimate layer's
+output, before the final LayerNorm; the layers after it are not run unless
+the pooled embedding is asked for), and with `projection_dim` the tower is
+transformers' CLIPTextModelWithProjection: the pooled embedding is the
+final-LayerNorm state at the EOS position (the largest id, as transformers
+finds it for CLIP's original vocabulary), times `text_projection` (no
+bias).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -103,22 +114,46 @@ class CLIPTextTransformer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(config.hidden_size,
                                              eps=config.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, context_hidden_state: Optional[int] = None,
+                pooled: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(context, the final-LayerNorm state at the EOS position or
+        None): the context is the last hidden state after the final
+        LayerNorm, or `hidden_states[context_hidden_state]` (0: the
+        embeddings, i: the i-th layer's output)."""
         x = self.embeddings(input_ids)
         s = input_ids.shape[1]
         causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-        for layer in self.encoder.layers:
-            x = layer(x, causal)
-        return _layer_norm_fp32(self.final_layer_norm, x).to(x.dtype)
+        n = len(self.encoder.layers)
+        at = None if context_hidden_state is None else context_hidden_state % (n + 1)
+        states = [x]
+        for layer in self.encoder.layers[:n if pooled or at is None else at]:
+            states.append(layer(states[-1], causal))
+        ctx = None if at is None else states[at]
+        if ctx is not None and not pooled:
+            return ctx, None
+        last = _layer_norm_fp32(self.final_layer_norm, states[-1]).to(x.dtype)
+        eos = (last[torch.arange(last.shape[0], device=last.device), input_ids.argmax(-1)]
+               if pooled else None)
+        return (last if ctx is None else ctx), eos
 
 
 class CLIPTextEncoder(nn.Module):
-    """input_ids [B, S] int -> last hidden state [B, S, hidden] (post final LN)."""
+    """input_ids [B, S] int -> the context [B, S, hidden] (the last hidden
+    state after the final LayerNorm, or the one `context_hidden_state`
+    names); with `pooled=True`, (context, pooled [B, projection_dim or
+    hidden])."""
 
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
         self.config = config
         self.text_model = CLIPTextTransformer(config)
+        if config.projection_dim is not None:
+            self.text_projection = Dense(config.hidden_size, config.projection_dim, bias=False)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.text_model(input_ids)
+    def forward(self, input_ids: torch.Tensor, pooled: bool = False):
+        ctx, eos = self.text_model(input_ids, self.config.context_hidden_state, pooled)
+        if not pooled:
+            return ctx
+        if self.config.projection_dim is not None:
+            eos = self.text_projection(eos)
+        return ctx, eos

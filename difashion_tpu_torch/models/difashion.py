@@ -3,9 +3,10 @@ schedule. Counterpart of `difashion_tpu/models/difashion.py`.
 
 The JAX package passes parameters beside its modules; here the towers are
 `nn.Module`s that hold their own. The split stays the same: trainable
-{unet, fashion_encoder}, frozen {vae, text_encoder}. Image and latent tensors
-are [B, C, H, W] by shape inside the bundle, channels-last in memory in the
-UNet and the VAE.
+{unet, fashion_encoder}, frozen {vae, text_encoder}, and with SDXL's second
+text tower (`ModelConfig.text_2`, the port's own) a frozen `text_encoder_2`
+(None otherwise). Image and latent tensors are [B, C, H, W] by shape inside
+the bundle, channels-last in memory in the UNet and the VAE.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from difashion_tpu_torch.config import ModelConfig
+from difashion_tpu_torch.core import tracing
 from difashion_tpu_torch.diffusion.schedule import DiffusionSchedule
 from difashion_tpu_torch.models.clip_text import CLIPEncoderLayer, CLIPTextEncoder
 from difashion_tpu_torch.models.mutual import MutualEncoder
@@ -37,6 +39,8 @@ class DiFashion(nn.Module):
         self.unet = UNet2DCondition(config.unet)
         self.vae = AutoencoderKL(config.vae)
         self.text_encoder = CLIPTextEncoder(config.text)
+        self.text_encoder_2 = (CLIPTextEncoder(config.text_2) if config.text_2 is not None
+                               else None)
         self.fashion_encoder = MutualEncoder(config.mutual)
         self.schedule = DiffusionSchedule.create(config.scheduler)
 
@@ -44,11 +48,13 @@ class DiFashion(nn.Module):
         """The trainable/frozen split of the JAX package's
         `engine/train.py::split_params`: {unet, fashion_encoder} require grad
         and are in training mode (the MutualEncoder's dropout acts);
-        {vae, text_encoder} are frozen and stay in eval mode."""
+        {vae, text_encoder} (and text_encoder_2, where there is one) are
+        frozen and stay in eval mode."""
         for name in TRAINABLE:
             getattr(self, name).train().requires_grad_(True)
-        for name in FROZEN:
-            getattr(self, name).eval().requires_grad_(False)
+        for name in FROZEN + ("text_encoder_2",):
+            if getattr(self, name) is not None:
+                getattr(self, name).eval().requires_grad_(False)
         return self
 
     def trainable_parameters(self) -> List[Tuple[str, nn.Parameter]]:
@@ -58,9 +64,13 @@ class DiFashion(nn.Module):
                 for name, p in getattr(self, tower).named_parameters()]
 
     def apply_unet(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                   encoder_hidden_states: torch.Tensor) -> torch.Tensor:
-        """sample [B, C_in, h, w] -> epsilon [B, C_out, h, w] in the UNet's dtype."""
-        return self.unet(sample, timesteps, encoder_hidden_states)
+                   encoder_hidden_states: torch.Tensor,
+                   text_embeds: Optional[torch.Tensor] = None,
+                   time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample [B, C_in, h, w] -> epsilon [B, C_out, h, w] in the UNet's
+        dtype; SDXL's added conditioning: the pooled text embedding [B, P]
+        and the time ids [B, 6]."""
+        return self.unet(sample, timesteps, encoder_hidden_states, text_embeds, time_ids)
 
     def encode_images(self, images: torch.Tensor, sample: bool = False,
                       generator: Optional[torch.Generator] = None,
@@ -76,8 +86,18 @@ class DiFashion(nn.Module):
         """scaled latents [B, C, h, w] -> images [B, 3, H, W] in [-1, 1]."""
         return self.vae.decode(latents / self.config.vae.scaling_factor)
 
-    def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.text_encoder(input_ids)
+    def encode_text(self, input_ids: torch.Tensor, pooled: bool = False):
+        """input_ids [B, 77] -> the UNet's context [B, 77, D]; with
+        `pooled=True`, (context, pooled [B, P] or None). With a second text
+        tower (SDXL) the context is both towers' contexts concatenated and
+        the pooled embedding the second's."""
+        with tracing.span("text.encode"):
+            if self.text_encoder_2 is None:
+                ctx, pool = self.text_encoder(input_ids), None
+            else:
+                ctx_2, pool = self.text_encoder_2(input_ids, pooled=True)
+                ctx = torch.cat([self.text_encoder(input_ids), ctx_2], dim=-1)
+        return (ctx, pool) if pooled else ctx
 
     def apply_mutual(self, mutual_emb: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
@@ -134,7 +154,9 @@ def _init_(model: DiFashion, generator: torch.Generator) -> None:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
-    for tower in (model.unet, model.vae, model.text_encoder):
+    for tower in (model.unet, model.vae, model.text_encoder, model.text_encoder_2):
+        if tower is None:
+            continue
         outs = list(_residual_branch_outputs(tower))
         for m in outs:
             m.weight.mul_(1.0 / math.sqrt(len(outs)))

@@ -5,11 +5,17 @@ channels-last where the model is built, and the sample on entry, so every
 activation inside is too (the JAX package's NHWC), as cuDNN's fast
 convolutions and the GroupNorm kernel read it.
 
-conv_in -> time MLP -> 3 cross-attention down blocks + 1 plain down block ->
-mid (resnet, transformer, resnet) -> 1 plain up block + 3 cross-attention up
-blocks -> GN/SiLU/conv_out. Skips are pushed after every down resnet and
-downsample and popped in reverse by the up resnets, each of which runs on
-torch.cat([h, skip], 1).
+conv_in -> time MLP -> the down blocks (SD: 3 cross-attention + 1 plain;
+SDXL: 1 plain + 2 cross-attention) -> mid (resnet, transformer, resnet) ->
+the up blocks in mirror order -> GN/SiLU/conv_out. Skips are pushed after
+every down resnet and downsample and popped in reverse by the up resnets,
+each of which runs on torch.cat([h, skip], 1). A level's Transformer2D holds
+`transformer_layers_per_block` blocks (`UNetConfig.level_depth`); the mid
+block takes the last level's, an up block its mirror level's. Each forward
+counts the blocks it runs into the counter `unet.transformer_blocks`. With `addition_embed_type` "text_time" (SDXL) the forward
+takes the pooled text embedding and the six time ids, and `add_embedding`
+of their concatenation is added to the time embedding; an SD config has no
+such module and runs no such op.
 
 Gradient checkpointing (the JAX package's `remat`) wraps every ResnetBlock2D
 and Transformer2D call in `torch.utils.checkpoint` (non-reentrant) while
@@ -80,13 +86,18 @@ class UNet2DCondition(nn.Module):
         boc, g = cfg.block_out_channels, cfg.norm_num_groups
         temb_ch = boc[0] * 4
 
-        def spatial(ch: int) -> Transformer2D:
+        def spatial(ch: int, level: int) -> Transformer2D:
             heads = cfg.fixed_num_heads or ch // cfg.attention_head_dim
-            return Transformer2D(heads, ch // heads, ch, 1, cfg.cross_attention_dim,
-                                 cfg.use_linear_projection, g)
+            return Transformer2D(heads, ch // heads, ch, cfg.level_depth(level),
+                                 cfg.cross_attention_dim, cfg.use_linear_projection, g)
 
         self.conv_in = conv2d(cfg.in_channels, boc[0])
         self.time_embedding = TimestepEmbedding(boc[0], temb_ch)
+        if cfg.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unknown addition_embed_type {cfg.addition_embed_type!r}")
+        self.add_embedding = (
+            TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb_ch)
+            if cfg.addition_embed_type == "text_time" else None)
 
         # the skip channels, pushed as the forward pass pushes the skips
         ch, skips = boc[0], [boc[0]]
@@ -99,7 +110,7 @@ class UNet2DCondition(nn.Module):
                 resnets.append(ResnetBlock2D(ch, out_ch, temb_ch, g))
                 ch = out_ch
                 if block_type == "CrossAttnDownBlock2D":
-                    attns.append(spatial(ch))
+                    attns.append(spatial(ch, bi))
                 skips.append(ch)
             down.append(_Block(resnets, attns,
                                downsample=None if last else Downsample2D(ch)))
@@ -109,7 +120,7 @@ class UNet2DCondition(nn.Module):
 
         self.mid_block = _Block(
             [ResnetBlock2D(ch, ch, temb_ch, g), ResnetBlock2D(ch, ch, temb_ch, g)],
-            [spatial(ch)])
+            [spatial(ch, len(boc) - 1)])
 
         up = []
         for bi, block_type in enumerate(cfg.up_block_types):
@@ -120,13 +131,17 @@ class UNet2DCondition(nn.Module):
                 resnets.append(ResnetBlock2D(ch + skips.pop(), out_ch, temb_ch, g))
                 ch = out_ch
                 if block_type == "CrossAttnUpBlock2D":
-                    attns.append(spatial(ch))
+                    attns.append(spatial(ch, len(boc) - 1 - bi))
             up.append(_Block(resnets, attns,
                              upsample=None if last else Upsample2D(ch)))
         self.up_blocks = nn.ModuleList(up)
 
         self.conv_norm_out = GroupNorm(g, ch, act="silu")
         self.conv_out = conv2d(ch, cfg.out_channels)
+        self.blocks_per_forward = sum(
+            len(attn.transformer_blocks) for block in (*self.down_blocks, self.mid_block,
+                                                       *self.up_blocks)
+            for attn in block.attentions)
         self.gradient_checkpointing = False
         self.remat_policy: Optional[str] = None
         to_channels_last(self)
@@ -154,18 +169,40 @@ class UNet2DCondition(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
 
+    def added_embedding(self, text_embeds: torch.Tensor,
+                        time_ids: torch.Tensor) -> torch.Tensor:
+        """SDXL's added conditioning: each of the [B, 6] time ids through a
+        sinusoidal embedding (`addition_time_embed_dim` wide, the time
+        projection's flip and shift), concatenated after the [B, P] pooled
+        text embedding, in the compute dtype through `add_embedding`."""
+        cfg = self.config
+        if text_embeds is None or time_ids is None:
+            raise ValueError("this UNet's added conditioning needs text_embeds and time_ids")
+        time_embeds = get_timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                             cfg.flip_sin_to_cos, cfg.freq_shift)
+        add = torch.cat([text_embeds.float(),
+                         time_embeds.reshape(text_embeds.shape[0], -1)], dim=-1)
+        return self.add_embedding(add.to(self.dtype))
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                text_embeds: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sample [B, C_in, H, W]; timesteps [B] (or a scalar); context
-        [B, S, context_dim]. Returns [B, C_out, H, W], channels-last, in the
-        compute dtype. The sample is made channels-last first (a view of an
-        NHWC sample: no copy)."""
+        [B, S, context_dim]; with the added conditioning (SDXL) the pooled
+        text embedding [B, P] and the time ids [B, 6]. Returns
+        [B, C_out, H, W], channels-last, in the compute dtype. The sample is
+        made channels-last first (a view of an NHWC sample: no copy)."""
         cfg, dtype = self.config, self.dtype
+        tracing.count("unet.transformer_blocks", self.blocks_per_forward)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
         t_emb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
                                        cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(t_emb.to(dtype))
+        if self.add_embedding is not None:
+            with tracing.span("unet.add_embedding"):
+                temb = temb + self.added_embedding(text_embeds, time_ids)
         ctx = encoder_hidden_states.to(dtype)
 
         h = self.conv_in(sample.to(dtype).contiguous(memory_format=torch.channels_last))

@@ -116,7 +116,7 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     """GN -> proj_in -> transformer blocks -> proj_out -> + residual. Linear
-    projections (sd2) or 1x1 convs (sd15)."""
+    projections (sd2, SDXL) or 1x1 convs (sd15)."""
 
     def __init__(self, heads: int, head_dim: int, in_channels: int, depth: int,
                  context_dim: int, use_linear_projection: bool = True,

@@ -11,7 +11,10 @@ UNet's conv_in is widened 4 -> 8 input channels with zeros when the source
 has 4 (a pretrained SD UNet; `core/importer.py:293-306`).
 
 The MutualEncoder flattens NCHW as the reference does, so its exported weights
-load unchanged.
+load unchanged. SDXL's bundle (the port's own) holds a fifth tower,
+`text_encoder_2` (transformers' CLIPTextModelWithProjection: `text_model.*`
+and `text_projection.weight`), and its UNet the keys `add_embedding.linear_1.*`
+and `add_embedding.linear_2.*`.
 """
 from __future__ import annotations
 
@@ -21,7 +24,14 @@ import numpy as np
 import torch
 from torch import nn
 
-TOWERS = ("unet", "vae", "text_encoder", "fashion_encoder")
+BASE_TOWERS = ("unet", "vae", "text_encoder", "fashion_encoder")
+TOWERS = BASE_TOWERS + ("text_encoder_2",)
+
+
+def towers_of(model) -> tuple:
+    """The TOWERS a `DiFashion` bundle holds (text_encoder_2 with a second
+    text tower only)."""
+    return tuple(t for t in TOWERS if getattr(model, t, None) is not None)
 
 
 def _to_tensor(value) -> torch.Tensor:
@@ -59,11 +69,13 @@ def load_tower(module: nn.Module, state_dict: Mapping[str, object], kind: str) -
 
 def load_difashion(model, state_dicts: Mapping[str, Mapping[str, object]]) -> None:
     """Load every tower of a `DiFashion` bundle from {tower: HF state dict}
-    (the keys of TOWERS; all four are required)."""
-    missing = [t for t in TOWERS if t not in state_dicts]
+    (the keys of TOWERS that the bundle holds, `towers_of`; all of them are
+    required)."""
+    towers = towers_of(model)
+    missing = [t for t in towers if t not in state_dicts]
     if missing:
         raise KeyError(f"state dicts missing for towers {missing}")
-    for kind in TOWERS:
+    for kind in towers:
         load_tower(getattr(model, kind), state_dicts[kind], kind)
 
 

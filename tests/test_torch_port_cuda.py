@@ -1,6 +1,7 @@
 """The CUDA kernels (flash-attention forward, dQ, dK/dV in 16 bits and in fp32;
 GroupNorm + SiLU; the skinny-N matmul in 16 bits and in fp32; the fused
-GEGLU) against their plain versions, on the card, with TF32 off.
+GEGLU) against their plain versions, on the card, with TF32 off; and the
+tiny SDXL-shaped model through them.
 
 Every test here needs an NVIDIA GPU (Hopper, sm_90a) with the CUDA toolkit, is
 marked `cuda`, and skips elsewhere. The module imports torch only (no JAX), so
@@ -8,6 +9,8 @@ on a GPU machine without JAX it runs with:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -743,6 +746,22 @@ def test_group_norm_kernel_beyond_2_31_elements(dev):
     torch.cuda.empty_cache()
 
 
+def test_group_norm_kernel_at_a_1024px_decoder_shape(dev):
+    """The SDXL decode's last level: 128 channels at 1024 x 1024, groups of
+    4 channels x 1,048,576 pixels (4x the 512 px decode's), bf16, two images:
+    the two-pass route, within the plain version's rounding, deterministic."""
+    x, scale, bias = _gn_inputs((2, 128, 1024, 1024), 32, torch.bfloat16, dev, seed=5)
+    assert gn_plan(x.shape, 32, x.dtype).route == "two_pass"
+    kernels.reset_launches()
+    y = group_norm_silu(x, scale, bias, 32, 1e-6, "silu")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["group_norm_silu"] == 1
+    pre = group_norm_silu_ref(x, scale, bias, 32, 1e-6)
+    want = group_norm_silu_ref(x, scale, bias, 32, 1e-6, "silu")
+    assert _gn_close(y, want, pre, torch.bfloat16)
+    assert torch.equal(y, group_norm_silu(x, scale, bias, 32, 1e-6, "silu"))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_group_norm_plain_version_either_layout(dev, dtype):
     """The plain version on the card gives the same numbers on channels-last
@@ -1276,6 +1295,42 @@ def test_geglu_routes_per_unet_forward(dev):
         y = unet(x, t, ctx)
     y.float().square().mean().backward()
     assert kernels.LAUNCHES["geglu_matmul"] == 0 and kernels.LAUNCHES["skinny_matmul"] > 0
+
+
+def test_tiny_xl_forward_through_the_kernels(dev):
+    """The tiny SDXL-shaped bundle in bf16 (per-level depth, the added
+    conditioning, two text towers): the text encode and a UNet forward
+    through the kernels against the same through their plain versions;
+    every transformer block's attentions on the flash kernel and its
+    GEGLU on the fused kernel."""
+    from difashion_tpu_torch.config import ModelConfig
+    from difashion_tpu_torch.models.difashion import create_difashion
+    from difashion_tpu_torch.nn.attention import BasicTransformerBlock
+
+    model = create_difashion(ModelConfig.tiny_xl(), seed=0, device=dev, dtype=torch.bfloat16)
+    n_blocks = sum(isinstance(m, BasicTransformerBlock) for m in model.unet.modules())
+    g = torch.Generator(device=dev).manual_seed(6)
+    ids = torch.randint(1, 990, (4, 77), generator=g, device=dev)
+    ids[:, 12] = 999
+    x = torch.randn(4, 8, 8, 8, generator=g, device=dev).bfloat16()
+    t = torch.tensor([10, 300, 600, 990], device=dev)
+    time_ids = torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 4, device=dev)
+    out = {}
+    with torch.inference_mode():
+        for name in ("kernels", "plain"):
+            with kernels.plain_versions() if name == "plain" else contextlib.nullcontext():
+                kernels.reset_launches()
+                ctx, pooled = model.encode_text(ids, pooled=True)
+                eps = model.apply_unet(x, t, ctx, pooled, time_ids)
+                torch.cuda.synchronize()
+                out[name] = (ctx.float(), pooled.float(), eps.float(), dict(kernels.LAUNCHES))
+    (ctx, pooled, eps, n), (ctx_p, pooled_p, eps_p, n_p) = out["kernels"], out["plain"]
+    assert n_blocks == 18 and n["flash_attention_fwd"] == 2 * n_blocks
+    assert n["geglu_matmul"] == n_blocks and n["group_norm_silu"] > 0
+    assert not any(n_p.values())
+    assert bool(torch.isfinite(eps).all())
+    assert _rel(ctx, ctx_p) <= 1e-2 and _rel(pooled, pooled_p) <= 1e-2
+    assert _rel(eps, eps_p) <= 2e-2
 
 
 def _tiny_train_dataset(path, n_items=16):

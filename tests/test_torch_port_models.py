@@ -23,9 +23,10 @@ from difashion_tpu_torch.models.difashion import create_difashion
 from difashion_tpu_torch.models.unet import UNet2DCondition
 from difashion_tpu_torch.models.vae import AutoencoderKL
 from difashion_tpu_torch.nn import kernels
-from difashion_tpu_torch.weights import TOWERS, load_difashion, load_tower, param_count
+from difashion_tpu_torch.weights import BASE_TOWERS, load_difashion, load_tower, param_count
 
 from golden_oracle import oracle
+from port_config import assert_port_extends_jax
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 _KINDS = {"unet": "unet", "vae": "vae", "text_encoder": "text",
@@ -43,7 +44,7 @@ def export_all(cfg, params):
     dims = (cfg.mutual.latent_channels, cfg.mutual.latent_size)
     return {t: export_params(params[t], _KINDS[t],
                              mutual_dims=dims if t == "fashion_encoder" else None)
-            for t in TOWERS}
+            for t in BASE_TOWERS}
 
 
 def port_from_jax(cfg, params):
@@ -87,13 +88,13 @@ def nhwc(t):
 def test_config_presets_match_jax(preset):
     ours = dataclasses.asdict(getattr(tcfg.ModelConfig, preset)())
     theirs = dataclasses.asdict(getattr(jcfg.ModelConfig, preset)())
-    assert ours == theirs
+    assert_port_extends_jax(ours, theirs)
 
 
 def test_strict_load_of_all_towers(bundle):
     cfg, _, params, port = bundle
     sds = export_all(cfg, params)
-    for tower in TOWERS:
+    for tower in BASE_TOWERS:
         module = getattr(port, tower)
         assert param_count(module) == jax_param_count(params[tower]), tower
         own = module.state_dict()
@@ -104,7 +105,7 @@ def test_strict_load_of_all_towers(bundle):
     sd = dict(sds["unet"])
     sd.pop("conv_out.bias")
     with pytest.raises(RuntimeError, match="conv_out.bias"):
-        load_tower(UNet2DCondition(cfg.unet), sd, "unet")
+        load_tower(UNet2DCondition(tcfg.UNetConfig.tiny()), sd, "unet")
 
 
 def test_unet_conv_in_is_zero_extended_from_4_channels(bundle):

@@ -31,6 +31,7 @@ from difashion_tpu_torch.models.difashion import create_difashion
 from difashion_tpu_torch.nn import kernels
 
 from test_torch_port_models import jax_bundle, port_from_jax
+from port_config import assert_port_extends_jax
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CATES = {1: "pants", 2: "shoes", 3: "earrings", 4: "t-shirt", 5: "bag"}
@@ -72,7 +73,7 @@ def _write_dataset(path, dicts):
 def test_config_matches_jax_and_reads_its_json():
     for preset in ("preset_eta01", "preset_tiny"):
         ours, theirs = getattr(tcfg.Config, preset)(), getattr(jcfg.Config, preset)()
-        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert_port_extends_jax(dataclasses.asdict(ours), dataclasses.asdict(theirs))
         assert tcfg.Config.from_json(theirs.to_json()) == ours
         assert jcfg.Config.from_json(ours.to_json()) == theirs
         assert tcfg.Config.from_dict(json.loads(ours.to_json())) == ours
